@@ -1,0 +1,476 @@
+"""Scenario-driven workload layer (port of ``repro.core.workload``).
+
+The scenario dataclasses (``TraceSpec``, ``WorkloadSpec``, ``SCENARIOS``)
+are copies with the same field names and validation.  The deterministic
+parts (payload derivation, key hashing, the ring neighbour table, the rate,
+membership and rejoin masks, ``plan_write_rows``) are ported verbatim.
+
+The plan stage: ``RequestPlan`` holds one tick's requests as fixed-shape
+tensors, exactly the JAX plan minus its PRNG keys.  An engine executes a
+plan; it never generates one.  Plans come from two sources:
+
+* the native ``plan_tick`` here, which draws from a ``torch.Generator``
+  (stream and zipf-cadence specs).  It samples the same distributions as
+  JAX, not the same numbers;
+* JAX's own ``plan_tick``, replayed through ``simulator.TickDraws``.
+
+Native Poisson arrivals and trace replay, and the trace generators, the npz
+loader and the consistent-hash ring, come with a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Literal, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.cache_state import CacheLine
+from repro_torch.utils.hashing import hash2_u32, hash2_u32_unsigned
+
+KEY_SALT = 0x5A1FCA5E
+WRITE_SALT = 0x57A9
+POISSON_SALT = 0x9015
+OP_WRITE = 0
+OP_READ = 1
+# Durability-index sentinel: the read's target row was never generated.
+NO_ROW = 2**30
+
+NATIVE_PLAN_TODO = (
+    "native planning of {what} comes with the native Poisson/trace planning "
+    "slice; replay JAX's plans through simulator.TickDraws meanwhile"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceSpec:
+    """Static description of a replayable ``(T, N)`` request trace."""
+
+    source: Literal["ycsb", "globetraff", "npz"] = "ycsb"
+    length: int = 512
+    read_fraction: float = 0.5
+    zipf_alpha: float = 0.99
+    p2p_fraction: float = 0.3
+    path: str = ""
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.source == "npz":
+            if not self.path:
+                raise ValueError(
+                    "TraceSpec(source='npz') needs path=<file.npz> holding "
+                    "'key_ids' and 'ops' arrays of shape (T, N)"
+                )
+        elif self.length < 1:
+            raise ValueError(
+                f"TraceSpec.length must be >= 1 (got {self.length}): it is "
+                "the number of ticks the synthetic trace covers"
+            )
+        if not (0.0 <= self.read_fraction <= 1.0):
+            raise ValueError(
+                f"TraceSpec.read_fraction must be in [0, 1] (got {self.read_fraction})"
+            )
+        if not (0.0 <= self.p2p_fraction <= 1.0):
+            raise ValueError(
+                f"TraceSpec.p2p_fraction must be in [0, 1] (got {self.p2p_fraction})"
+            )
+
+
+def _poisson_truncation_prob(lam: float, lanes: int) -> float:
+    """P[X > lanes] for X ~ Poisson(lam)."""
+    return 1.0 - sum(
+        math.exp(-lam) * lam**k / math.factorial(k) for k in range(lanes + 1)
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkloadSpec:
+    """Static description of one scenario."""
+
+    popularity: Literal["stream", "zipf", "trace"] = "stream"
+    key_universe: int = 4096
+    zipf_alpha: float = 0.9
+    rate: Literal["steady", "bursty", "diurnal"] = "steady"
+    rate_period: int = 60
+    rate_duty: float = 0.5
+    rate_floor: float = 0.25
+    churn_period: int = 0
+    churn_fraction: float = 0.2
+    arrivals: Literal["cadence", "poisson"] = "cadence"
+    poisson_rate: float = 1.0
+    max_requests_per_tick: int = 1
+    trace: Optional[TraceSpec] = None
+    fanout: Optional[int] = None
+
+    def __post_init__(self):
+        if self.fanout is not None and self.fanout < 1:
+            raise ValueError(
+                f"fanout must be >= 1 (got {self.fanout}): each node gossips "
+                "with a ring neighborhood of K distinct peers — use "
+                "fanout=None for dense all-pairs gossip"
+            )
+        if self.popularity == "trace":
+            if self.trace is None:
+                raise ValueError(
+                    "popularity='trace' needs a TraceSpec: "
+                    "WorkloadSpec(popularity='trace', trace=TraceSpec(...))"
+                )
+        elif self.trace is not None:
+            raise ValueError(
+                f"trace=TraceSpec(...) is only meaningful with "
+                f"popularity='trace' (got popularity={self.popularity!r})"
+            )
+        if self.mutable and self.key_universe < 2:
+            raise ValueError("zipf/trace key_universe must be >= 2")
+        if self.arrivals == "poisson":
+            if self.popularity != "zipf":
+                raise ValueError("arrivals='poisson' requires popularity='zipf'")
+            if not self.poisson_rate > 0.0:
+                raise ValueError(
+                    f"poisson_rate must be > 0 (got {self.poisson_rate})"
+                )
+        if self.max_requests_per_tick < 1:
+            raise ValueError(
+                f"max_requests_per_tick must be >= 1 (got "
+                f"{self.max_requests_per_tick})"
+            )
+        if self.arrivals == "poisson":
+            p_trunc = _poisson_truncation_prob(
+                self.poisson_rate, self.max_requests_per_tick
+            )
+            if p_trunc > 0.05:
+                need = self.max_requests_per_tick
+                while _poisson_truncation_prob(self.poisson_rate, need) > 0.05:
+                    need += 1
+                raise ValueError(
+                    f"Poisson({self.poisson_rate}) overflows "
+                    f"max_requests_per_tick={self.max_requests_per_tick} on "
+                    f"{p_trunc:.1%} of node-ticks (> 5%); raise it to >= {need} "
+                    f"or lower poisson_rate"
+                )
+        if self.churn_period > 0 and not (0.0 < self.churn_fraction < 1.0):
+            raise ValueError("churn_fraction must be in (0, 1) when churn is on")
+
+    @property
+    def mutable(self) -> bool:
+        """Keys can be re-written -> live coherence pass + keyed durability."""
+        return self.popularity in ("zipf", "trace")
+
+    @property
+    def has_churn(self) -> bool:
+        return self.churn_period > 0
+
+    @property
+    def stream_indexed(self) -> bool:
+        """Stream durability needs the carried cumulative-write index."""
+        return self.popularity == "stream" and (
+            self.rate != "steady" or self.churn_period > 0
+        )
+
+    @property
+    def plan_waves(self) -> int:
+        """Static number of padded write lanes per node per tick (P)."""
+        return self.max_requests_per_tick if self.arrivals == "poisson" else 1
+
+
+SCENARIOS: dict[str, WorkloadSpec] = {
+    "paper": WorkloadSpec(),
+    "zipf": WorkloadSpec(popularity="zipf", key_universe=4096, zipf_alpha=0.9),
+    "zipf_hot": WorkloadSpec(popularity="zipf", key_universe=512, zipf_alpha=1.2),
+    "bursty": WorkloadSpec(
+        popularity="zipf", key_universe=2048, zipf_alpha=0.9,
+        rate="bursty", rate_period=60, rate_duty=0.33,
+    ),
+    "diurnal": WorkloadSpec(
+        popularity="zipf", key_universe=2048, zipf_alpha=0.9,
+        rate="diurnal", rate_period=240, rate_floor=0.25,
+    ),
+    "churn": WorkloadSpec(
+        popularity="zipf", key_universe=2048, zipf_alpha=0.9,
+        churn_period=120, churn_fraction=0.2,
+    ),
+    "storm": WorkloadSpec(
+        popularity="zipf", key_universe=1024, zipf_alpha=1.1,
+        rate="bursty", rate_period=80, rate_duty=0.5,
+        churn_period=100, churn_fraction=0.25,
+    ),
+    "poisson": WorkloadSpec(
+        popularity="zipf", key_universe=1024, zipf_alpha=0.9,
+        arrivals="poisson", poisson_rate=1.0, max_requests_per_tick=4,
+    ),
+    "trace_ycsb": WorkloadSpec(
+        popularity="trace", key_universe=1024,
+        trace=TraceSpec(source="ycsb", length=600, read_fraction=0.5,
+                        zipf_alpha=0.99, seed=0),
+    ),
+    "stream_churn": WorkloadSpec(churn_period=120, churn_fraction=0.2),
+}
+
+
+# --------------------------------------------------------------------------
+# Payloads and keys.
+# --------------------------------------------------------------------------
+
+def payload_for(key: torch.Tensor, dim: int) -> torch.Tensor:
+    """Deterministic payload lanes ~ U[0, 1) from a key hash."""
+    lanes = hash2_u32_unsigned(
+        key[..., None], torch.arange(dim, dtype=torch.int64, device=key.device)
+    )
+    return lanes.to(torch.float32) / float(2**32)
+
+
+def versioned_payload(key: torch.Tensor, data_ts: torch.Tensor, dim: int) -> torch.Tensor:
+    """Payload of version ``data_ts`` of a mutable key (pure in (key, ts))."""
+    return payload_for(hash2_u32(key, data_ts), dim)
+
+
+def zipf_cdf(spec: WorkloadSpec, device=None) -> torch.Tensor:
+    """CDF of the truncated Zipf(alpha) pmf over ``key_universe`` ids (f32)."""
+    ranks = torch.arange(1, spec.key_universe + 1, dtype=torch.float32, device=device)
+    w = ranks ** (-spec.zipf_alpha)
+    return torch.cumsum(w, 0) / torch.sum(w)
+
+
+def key_hash(key_ids: torch.Tensor) -> torch.Tensor:
+    """The cache-line key (int32 bit pattern) of a zipf/trace key id."""
+    return hash2_u32(key_ids, torch.full_like(key_ids, KEY_SALT, dtype=torch.int64))
+
+
+# --------------------------------------------------------------------------
+# Static topology and run checks.
+# --------------------------------------------------------------------------
+
+def validate_run(cfg, ticks: int) -> None:
+    """Run-length invariants that need ``ticks``.
+
+    The fan-out checks of the JAX function.  Its trace-length check needs the
+    trace generators, which come with the native trace slice; a replayed
+    trace plan carries its own length (``run_sim`` checks the draw count).
+    """
+    spec = cfg.workload
+    if spec.fanout is not None:
+        if spec.fanout > cfg.n_nodes - 1:
+            raise ValueError(
+                f"fanout={spec.fanout} exceeds the {cfg.n_nodes - 1} distinct "
+                f"peers of an N={cfg.n_nodes} fog: lower fanout to <= N-1 or "
+                "use fanout=None for dense gossip"
+            )
+        if cfg.readers_per_tick < 1:
+            raise ValueError(
+                f"fanout={spec.fanout} needs reader compaction, but "
+                f"readers_per_tick={cfg.readers_per_tick}"
+            )
+
+
+def neighbor_table(n: int, k: int, device=None) -> torch.Tensor:
+    """Static ring neighbourhood ``nbr[i, j] = (i + off_j) mod n`` with
+    offsets +1, -1, +2, -2, ..., as an int64 index tensor on ``device``.
+
+    Built once per (n, k, device) and shared: callers only index with it.
+    """
+    if not 1 <= k <= n - 1:
+        raise ValueError(f"neighbor_table needs 1 <= k <= n-1 (got k={k}, n={n})")
+    return _neighbor_table(n, k, torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=16)
+def _neighbor_table(n: int, k: int, device: torch.device) -> torch.Tensor:
+    j = torch.arange(k, dtype=torch.int64, device=device)
+    offs = (j // 2 + 1) * (1 - 2 * (j % 2))
+    return (torch.arange(n, dtype=torch.int64, device=device)[:, None] + offs[None, :]) % n
+
+
+# --------------------------------------------------------------------------
+# Deterministic node-activity masks (``t`` is the host tick).
+# --------------------------------------------------------------------------
+
+def rate_mask(spec: WorkloadSpec, n: int, t: int, device=None) -> torch.Tensor:
+    """Which nodes generate a write this tick."""
+    if spec.rate == "steady":
+        return torch.ones((n,), dtype=torch.bool, device=device)
+    if spec.rate == "bursty":
+        on_ticks = max(1, int(round(spec.rate_period * spec.rate_duty)))
+        return torch.full((n,), (t % spec.rate_period) < on_ticks,
+                          dtype=torch.bool, device=device)
+    # diurnal: the first active(t) node ids write, in float32 as in JAX.
+    phase = np.float32(2.0 * np.pi) * (np.float32(t) / np.float32(spec.rate_period))
+    frac = np.float32(spec.rate_floor) + np.float32(1.0 - spec.rate_floor) * \
+        np.float32(0.5) * (np.float32(1.0) + np.sin(phase))
+    active = int(np.ceil(np.float32(n) * frac))
+    return torch.arange(n, device=device) < active
+
+
+def online_mask(spec: WorkloadSpec, n: int, t: int, device=None) -> torch.Tensor:
+    """Which nodes are fog members this tick (a rotating offline block)."""
+    if not spec.has_churn:
+        return torch.ones((n,), dtype=torch.bool, device=device)
+    m = max(1, min(n - 1, int(round(n * spec.churn_fraction))))
+    start = ((t // spec.churn_period) * m) % n
+    return (torch.arange(n, device=device) - start) % n >= m
+
+
+def rejoin_mask(spec: WorkloadSpec, n: int, t: int, device=None) -> torch.Tensor:
+    """Nodes that came back online THIS tick (they cold-start)."""
+    if not spec.has_churn or t <= 0:
+        return torch.zeros((n,), dtype=torch.bool, device=device)
+    return online_mask(spec, n, t, device) & ~online_mask(spec, n, t - 1, device)
+
+
+# --------------------------------------------------------------------------
+# The plan stage.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PlanState:
+    """Carried plan-stage state: the cumulative write count and, on
+    stream-indexed specs, the ring index of each recent (tick, node) write."""
+
+    cum_writes: torch.Tensor   # int32
+    enq_window: torch.Tensor   # (window_ticks, N) int32, or (0, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RequestPlan:
+    """One tick's materialized workload (the JAX plan minus its PRNG keys)."""
+
+    online: torch.Tensor       # (N,) bool
+    rejoin: torch.Tensor       # (N,) bool
+    w_keys: torch.Tensor       # (P, N) int32 key bit patterns
+    w_kids: torch.Tensor       # (P, N) int32 key ids (mutable specs)
+    w_valid: torch.Tensor      # (P, N) bool
+    reading: torch.Tensor      # (N,) bool
+    r_keys: torch.Tensor       # (N,) int32
+    r_kids: torch.Tensor       # (N,) int32
+    r_enq_idx: torch.Tensor    # (N,) int32 stream durability index
+    r_fill_ts: torch.Tensor    # (N,) int32
+    r_src: torch.Tensor        # (N,) int32
+    slot_id: torch.Tensor      # (R,) int32 raw slot node id (may be >= N)
+    slot_nid: torch.Tensor     # (R,) int32 clipped slot node id
+    slot_ok: torch.Tensor      # (R,) bool
+    state_next: PlanState
+
+
+def init_plan_state(cfg, device=None) -> PlanState:
+    shape = (cfg.window_ticks, cfg.n_nodes) if cfg.workload.stream_indexed else (0, 0)
+    return PlanState(
+        cum_writes=torch.zeros((), dtype=torch.int32, device=device),
+        enq_window=torch.full(shape, -1, dtype=torch.int32, device=device),
+    )
+
+
+def sample_key_ids(spec: WorkloadSpec, gen: torch.Generator, shape) -> torch.Tensor:
+    """Zipf-distributed key ids in [0, key_universe) by inverse CDF."""
+    cdf = zipf_cdf(spec, gen.device)
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    ids = torch.searchsorted(cdf, u)
+    return ids.clamp(0, spec.key_universe - 1).to(torch.int32)
+
+
+def plan_tick(cfg, plan_state: PlanState, t: int, gen: torch.Generator) -> RequestPlan:
+    """Materialize tick ``t``'s workload, drawing from ``gen``.
+
+    Covers the stream and zipf-cadence specs; the tensors live on
+    ``gen.device``.  ``t`` is the host tick, so no bound depends on a device
+    value and the plan needs no synchronisation.
+    """
+    spec = cfg.workload
+    if spec.popularity == "trace":
+        raise NotImplementedError(NATIVE_PLAN_TODO.format(what="trace replay"))
+    if spec.arrivals == "poisson":
+        raise NotImplementedError(NATIVE_PLAN_TODO.format(what="Poisson arrivals"))
+    n = cfg.n_nodes
+    dev = gen.device
+    i32 = torch.int32
+    node_ids = torch.arange(n, dtype=i32, device=dev)
+    online = online_mask(spec, n, t, dev)
+    rejoin = rejoin_mask(spec, n, t, dev)
+
+    # ---- writes ------------------------------------------------------------
+    if spec.mutable:
+        kids = sample_key_ids(spec, gen, (n,))
+        w_kids = kids[None, :]
+        w_keys = key_hash(kids)[None, :]
+        w_valid = (rate_mask(spec, n, t, dev) & online)[None, :]
+    else:
+        w_keys = hash2_u32(torch.full((n,), t, dtype=torch.int64, device=dev),
+                           node_ids)[None, :]
+        w_kids = torch.zeros((1, n), dtype=i32, device=dev)
+        if spec.stream_indexed:
+            w_valid = (rate_mask(spec, n, t, dev) & online)[None, :]
+        else:
+            w_valid = torch.ones((1, n), dtype=torch.bool, device=dev)
+
+    # ---- cumulative-write ring indexing ------------------------------------
+    n_new = w_valid.sum(dtype=i32)
+    enq_window = plan_state.enq_window
+    if spec.stream_indexed:
+        v = w_valid[0]
+        rank = torch.cumsum(v.to(i32), 0, dtype=i32) - 1
+        enq_window = enq_window.clone()
+        enq_window[t % cfg.window_ticks] = torch.where(v, plan_state.cum_writes + rank, -1)
+    state_next = PlanState(cum_writes=plan_state.cum_writes + n_new,
+                           enq_window=enq_window)
+
+    # ---- reads -------------------------------------------------------------
+    cadence = ((t + node_ids) % cfg.read_period == 0) & (t > 0)
+    minus_one = torch.full((n,), -1, dtype=i32, device=dev)
+    zeros = torch.zeros((n,), dtype=i32, device=dev)
+    if spec.mutable:
+        reading = cadence & online
+        r_kids = sample_key_ids(spec, gen, (n,))
+        r_keys = key_hash(r_kids)
+        r_enq_idx, r_fill_ts, r_src = zeros, minus_one, minus_one
+    else:
+        reading = cadence & online if spec.has_churn else cadence
+        window = min(cfg.window_ticks, max(t, 1))
+        ages = torch.randint(0, window, (n,), generator=gen, device=dev, dtype=i32)
+        ages = ages.clamp(max=t)
+        src = torch.randint(0, n, (n,), generator=gen, device=dev, dtype=i32)
+        r_tick = t - ages
+        r_keys = hash2_u32(r_tick, src)
+        r_kids = zeros
+        if spec.stream_indexed:
+            idx = enq_window[(r_tick % cfg.window_ticks).long(), src.long()]
+            r_enq_idx = torch.where(idx >= 0, idx, NO_ROW)
+        else:
+            r_enq_idx = r_tick * n + src
+        r_fill_ts, r_src = r_tick, src
+
+    # ---- reader-compaction slots: the nodes = -t (mod read_period) ---------
+    p = cfg.read_period
+    slot_id = (-t) % p + p * torch.arange(cfg.readers_per_tick, dtype=i32, device=dev)
+    slot_ok = (slot_id < n) & (t > 0)
+    slot_nid = slot_id.clamp(max=n - 1)
+    if spec.has_churn:
+        slot_ok = slot_ok & online[slot_nid.long()]
+
+    return RequestPlan(
+        online=online, rejoin=rejoin,
+        w_keys=w_keys, w_kids=w_kids, w_valid=w_valid,
+        reading=reading, r_keys=r_keys, r_kids=r_kids,
+        r_enq_idx=r_enq_idx, r_fill_ts=r_fill_ts, r_src=r_src,
+        slot_id=slot_id, slot_nid=slot_nid, slot_ok=slot_ok,
+        state_next=state_next,
+    )
+
+
+def plan_write_rows(cfg, plan: RequestPlan, wave: int, t: int) -> CacheLine:
+    """Write wave ``wave`` of a plan as full-fog ``CacheLine``s."""
+    n = cfg.n_nodes
+    keys = plan.w_keys[wave]
+    dev = keys.device
+    ts = torch.full((n,), t, dtype=torch.int32, device=dev)
+    if cfg.workload.mutable:
+        data = versioned_payload(keys, ts, cfg.payload_dim)
+    else:
+        data = payload_for(keys, cfg.payload_dim)
+    return CacheLine(
+        key=keys,
+        data_ts=ts,
+        origin=torch.arange(n, dtype=torch.int32, device=dev),
+        data=data,
+        valid=plan.w_valid[wave],
+        dirty=torch.zeros((n,), dtype=torch.bool, device=dev),
+    )

@@ -1,0 +1,163 @@
+"""Wrappers of the hand-written CUDA kernels, with their launch counts.
+
+Each wrapper takes the arguments of its plain version in ``kernels/ref.py``.
+On CPU tensors it returns the plain version's result; on CUDA tensors it
+checks device, dtype, shape and contiguity, allocates outputs and scratch,
+launches the kernel from ``csrc/`` on the current stream and raises if the
+launch reports an error.  There is no fallback: a CUDA tensor either goes
+through the kernel or the call raises.
+
+The kernels update the cache tables IN PLACE (``flic_insert`` all eight,
+``flic_update`` ``data_ts``/``last_use``/``data``) and return those same
+tensors; the plain versions return new ones.
+
+``LAUNCHES[name]`` counts the calls that launched kernel ``name``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES: dict[str, int] = {"flic_insert": 0, "flic_update": 0, "flic_lookup": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}: use 'cpu' or 'cuda'")
+    return True
+
+
+def _check(device, **tensors) -> None:
+    """``name=(tensor, dtype, shape)`` -> raise on a mismatch."""
+    for name, (t, dtype, shape) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+@functools.cache
+def _launcher(name: str, n_ptr: int, n_int: int):
+    """The C launcher of kernel ``name``, resolved and typed once."""
+    fn = getattr(build.library(name), f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, n_int: int, device, tensors, ints) -> None:
+    fn = _launcher(name, len(tensors), n_int)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
+    LAUNCHES[name] += 1
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+I32, F32, BOOL = torch.int32, torch.float32, torch.bool
+
+
+def flic_insert(tags, data_ts, ins_ts, origin, valid, dirty, last_use, data,
+                keys, sidx, line_ts, line_origin, line_dirty, live, line_data,
+                now: int):
+    """One-line-per-node upsert; see ``ref.flic_insert_ref``.  Returns the
+    eight tables (on CUDA: the input tensors, updated in place)."""
+    if not _on_cuda(tags):
+        return ref.flic_insert_ref(
+            tags, data_ts, ins_ts, origin, valid, dirty, last_use, data, keys,
+            sidx, line_ts, line_origin, line_dirty, live, line_data, now,
+        )
+    n, s, w = tags.shape
+    d = data.shape[-1]
+    tab, lane = (n, s, w), (n,)
+    _check(
+        tags.device,
+        tags=(tags, I32, tab), data_ts=(data_ts, I32, tab), ins_ts=(ins_ts, I32, tab),
+        origin=(origin, I32, tab), valid=(valid, BOOL, tab), dirty=(dirty, BOOL, tab),
+        last_use=(last_use, I32, tab), data=(data, F32, (n, s, w, d)),
+        keys=(keys, I32, lane), sidx=(sidx, I32, lane), line_ts=(line_ts, I32, lane),
+        line_origin=(line_origin, I32, lane), line_dirty=(line_dirty, BOOL, lane),
+        live=(live, BOOL, lane), line_data=(line_data, F32, (n, d)),
+    )
+    _launch(
+        "flic_insert", 5, tags.device,
+        (tags, data_ts, ins_ts, origin, valid, dirty, last_use, data, keys, sidx,
+         line_ts, line_origin, line_dirty, live, line_data),
+        (int(now), n, s, w, d),
+    )
+    return tags, data_ts, ins_ts, origin, valid, dirty, last_use, data
+
+
+def flic_update(tags, data_ts, valid, last_use, data, keys, sidx, row_ts,
+                row_data, live, now: int):
+    """Coherence sweep of N caches by R rows; see ``ref.flic_update_ref``.
+    Returns (data_ts, last_use, data, n_upd (N,)); on CUDA the first three
+    are the input tensors, updated in place."""
+    if not _on_cuda(tags):
+        return ref.flic_update_ref(
+            tags, data_ts, valid, last_use, data, keys, sidx, row_ts, row_data,
+            live, now,
+        )
+    n, s, w = tags.shape
+    d = data.shape[-1]
+    r = keys.shape[0]
+    tab = (n, s, w)
+    _check(
+        tags.device,
+        tags=(tags, I32, tab), data_ts=(data_ts, I32, tab), valid=(valid, BOOL, tab),
+        last_use=(last_use, I32, tab), data=(data, F32, (n, s, w, d)),
+        keys=(keys, I32, (r,)), sidx=(sidx, I32, (r,)), row_ts=(row_ts, I32, (r,)),
+        row_data=(row_data, F32, (r, d)), live=(live, BOOL, (n, r)),
+    )
+    winr = torch.full(tab, -1, dtype=I32, device=tags.device)
+    counts = torch.zeros((n,), dtype=I32, device=tags.device)
+    _launch(
+        "flic_update", 6, tags.device,
+        (tags, data_ts, valid, last_use, data, keys, sidx, row_ts, row_data,
+         live, winr, counts),
+        (int(now), n, r, s, w, d),
+    )
+    return data_ts, last_use, data, counts
+
+
+def flic_lookup(tags, data_ts, valid, data, keys, sidx):
+    """Probe of C caches by Q shared queries; see ``ref.flic_lookup_ref``.
+    Returns (hit (C,Q), ts (C,Q), payload (C,Q,D), way (C,Q))."""
+    if not _on_cuda(tags):
+        return ref.flic_lookup_ref(tags, data_ts, valid, data, keys, sidx)
+    c, s, w = tags.shape
+    d = data.shape[-1]
+    q = keys.shape[0]
+    tab = (c, s, w)
+    _check(
+        tags.device,
+        tags=(tags, I32, tab), data_ts=(data_ts, I32, tab), valid=(valid, BOOL, tab),
+        data=(data, F32, (c, s, w, d)), keys=(keys, I32, (q,)), sidx=(sidx, I32, (q,)),
+    )
+    dev = tags.device
+    hit = torch.empty((c, q), dtype=BOOL, device=dev)
+    ts = torch.empty((c, q), dtype=I32, device=dev)
+    payload = torch.empty((c, q, d), dtype=F32, device=dev)
+    way = torch.empty((c, q), dtype=I32, device=dev)
+    _launch(
+        "flic_lookup", 5, dev,
+        (tags, data_ts, valid, data, keys, sidx, hit, ts, payload, way),
+        (c, q, s, w, d),
+    )
+    return hit, ts, payload, way

@@ -1,0 +1,162 @@
+"""Plain PyTorch versions of the three FLIC kernels.
+
+Ports of ``repro.kernels.ref`` (``flic_lookup_ref``, ``flic_update_ref``,
+``flic_insert_ref``) with the same contracts.  They are the CPU path of the
+``kernels.ops`` wrappers, the ``probe_backend="plain"`` path of the engine,
+and what ``chip_smoke.py`` holds each CUDA kernel against on the card.
+
+Differences in form from the JAX oracles, none in result:
+
+* tables are batched over a leading cache axis (the JAX oracles work on one
+  cache and are vmapped); ``flic_update_ref`` takes the dense ``(N, R)``
+  ``live`` mask and returns per-cache update counts ``(N,)``;
+* tags and keys are int32 bit patterns, ``valid``/``dirty`` are bool;
+* the plain versions are functional; the CUDA kernels update in place.
+"""
+from __future__ import annotations
+
+import torch
+
+INT32_MAX = 2**31 - 1
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 when none): argmax on
+    an integer copy, because torch refuses argmax on bool."""
+    return mask.to(torch.int32).argmax(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# flic_lookup: set-associative probe of C caches by Q shared queries
+# ---------------------------------------------------------------------------
+
+def flic_lookup_ref(tags, data_ts, valid, data, keys, sidx):
+    """Probe every cache for every query.
+
+    ``tags``/``data_ts``/``valid`` are ``(C, S, W)``, ``data`` ``(C, S, W, D)``,
+    ``keys``/``sidx`` ``(Q,)``.  Returns (hit (C,Q) bool, ts (C,Q) int32,
+    payload (C,Q,D) f32, way (C,Q) int32).  Among matching ways the one with
+    the highest timestamp wins, the first on equal timestamps; on a miss
+    ``ts`` is -1, ``way`` 0 and ``payload`` zeros.
+    """
+    s = sidx.long()
+    c = tags.shape[0]
+    match = valid[:, s] & (tags[:, s] == keys[None, :, None])   # (C, Q, W)
+    hit = match.any(dim=-1)
+    ts_m = torch.where(match, data_ts[:, s], -1)
+    way = ts_m.argmax(dim=-1)                                    # first max
+    ts = ts_m.amax(dim=-1)
+    rows = torch.arange(c, device=tags.device)[:, None]
+    payload = torch.where(hit[..., None], data[rows, s[None, :], way], 0.0)
+    way = torch.where(hit, way, 0).to(torch.int32)
+    return hit, ts, payload, way
+
+
+# ---------------------------------------------------------------------------
+# flic_update: coherence sweep of N caches by R broadcast rows
+# ---------------------------------------------------------------------------
+
+def update_winners(tags, data_ts, valid, keys, sidx, row_ts, live):
+    """The sweep's election: (winr (N,S,W) int32, n_upd (N,) int32).
+
+    A live row qualifies for a line if the line is valid, the tags match and
+    the row's timestamp is strictly newer than the line's PRE-sweep one.
+    ``winr`` is the highest qualifying row index per line (-1: none);
+    ``n_upd`` counts, per cache, the rows that qualified for any way.
+    """
+    s = sidx.long()
+    n, r = live.shape
+    w = tags.shape[-1]
+    match = valid[:, s] & (tags[:, s] == keys[None, :, None])    # (N, R, W)
+    newer = row_ts[None, :, None] > data_ts[:, s]
+    upd = match & newer & live[:, :, None]
+    n_upd = upd.any(dim=2).sum(dim=1, dtype=torch.int32)
+    ridx = torch.arange(r, dtype=torch.int32, device=tags.device)
+    winr = torch.full(tags.shape, -1, dtype=torch.int32, device=tags.device)
+    winr.scatter_reduce_(
+        1, s[None, :, None].expand(n, r, w),
+        torch.where(upd, ridx[None, :, None], -1), "amax",
+    )
+    return winr, n_upd
+
+
+def flic_update_ref(tags, data_ts, valid, last_use, data, keys, sidx, row_ts,
+                    row_data, live, now: int):
+    """Apply the coherence sweep; returns (data_ts, last_use, data, n_upd).
+
+    Each line with a winning row takes that row's timestamp and payload and
+    ``last_use = now``; see ``update_winners`` for the election.
+    """
+    winr, n_upd = update_winners(tags, data_ts, valid, keys, sidx, row_ts, live)
+    updated = winr >= 0
+    wsafe = winr.clamp(min=0).long()
+    return (
+        torch.where(updated, row_ts[wsafe], data_ts),
+        torch.where(updated, now, last_use),
+        torch.where(updated[..., None], row_data[wsafe], data),
+        n_upd,
+    )
+
+
+# ---------------------------------------------------------------------------
+# flic_insert: one-line-per-node upsert across N caches
+# ---------------------------------------------------------------------------
+
+def insert_way(tags_r, valid_r, use_r, keys):
+    """Way select over gathered set rows ``(N, W)``: the first matching
+    valid way if the key is present, else the first invalid way, else the
+    least recently used way.  Returns (way (N,) int64, present (N,) bool)."""
+    match = valid_r & (tags_r == keys[:, None])
+    present = match.any(dim=1)
+    any_invalid = (~valid_r).any(dim=1)
+    use = torch.where(valid_r, use_r, INT32_MAX)
+    victim = torch.where(any_invalid, _first_true(~valid_r), use.argmin(dim=1))
+    return torch.where(present, _first_true(match), victim), present
+
+
+def insert_plan(tags, data_ts, valid, last_use, keys, sidx, line_ts, live):
+    """(way, do_write) per node: the way each line goes to, and whether it
+    is written (live, and not stale against a present copy)."""
+    rows = torch.arange(tags.shape[0], device=tags.device)
+    s = sidx.long()
+    way, present = insert_way(tags[rows, s], valid[rows, s], last_use[rows, s], keys)
+    stale = present & (line_ts <= data_ts[rows, s, way])
+    return way, live & ~stale
+
+
+def flic_insert_ref(tags, data_ts, ins_ts, origin, valid, dirty, last_use, data,
+                    keys, sidx, line_ts, line_origin, line_dirty, live,
+                    line_data, now: int):
+    """Batched upsert, one line per node; returns the eight updated tables
+    (tags, data_ts, ins_ts, origin, valid, dirty, last_use, data).
+
+    A present line is overwritten only by a STRICTLY newer timestamp; dead
+    lanes (``live`` False) never write.  No eviction record is produced.
+    """
+    n, _, w_ways = tags.shape
+    rows = torch.arange(n, device=tags.device)
+    s = sidx.long()
+    way, do_write = insert_plan(tags, data_ts, valid, last_use, keys, sidx,
+                                line_ts, live)
+    onehot = do_write[:, None] & (
+        torch.arange(w_ways, device=tags.device)[None, :] == way[:, None]
+    )                                                            # (N, W)
+
+    def wr(field, value):
+        new = torch.where(onehot, value[:, None].to(field.dtype), field[rows, s])
+        return field.index_put((rows, s), new)
+
+    now_n = torch.full((n,), now, dtype=torch.int32, device=tags.device)
+    return (
+        wr(tags, keys),
+        wr(data_ts, line_ts),
+        wr(ins_ts, now_n),
+        wr(origin, line_origin),
+        wr(valid, torch.ones_like(live)),
+        wr(dirty, line_dirty),
+        wr(last_use, now_n),
+        data.index_put(
+            (rows, s),
+            torch.where(onehot[..., None], line_data[:, None, :], data[rows, s]),
+        ),
+    )

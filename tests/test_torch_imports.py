@@ -1,0 +1,47 @@
+"""Package rules of the port: no JAX, nothing of the JAX package, and a
+counted wrapper for every CUDA kernel."""
+import ast
+import re
+from pathlib import Path
+
+from repro_torch.kernels import build, ops
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_never_imports_jax_or_the_jax_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [(str(f.relative_to(ROOT)), root, line) for f in files
+           for root, line in _imported_roots(f) if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_every_cuda_kernel_has_a_counted_wrapper():
+    sources = build.sources()
+    assert set(sources) == {"flic_insert", "flic_update", "flic_lookup"}
+    assert set(ops.LAUNCHES) == set(sources)
+    for name, src in sources.items():
+        text = src.read_text()
+        assert callable(getattr(ops, name)), name
+        assert re.search(rf'extern "C" int {name}_launch\(', text), name
+        assert "Replaces the TPU kernel repro/kernels/" in text, name
+        assert "What bounds it on the card" in text, name
+    ops.reset_launches()
+    assert set(ops.LAUNCHES.values()) == {0}
+
+
+def test_kernels_build_for_hopper_into_an_ignored_directory():
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()

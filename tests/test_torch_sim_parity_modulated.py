@@ -1,0 +1,15 @@
+"""The port's fused engine against JAX's, bitwise, on replayed draws:
+the rate-modulated and churn cases (see ``torch_parity``)."""
+import pytest
+from torch_parity import MODULATED, check_series, check_summary
+
+
+@pytest.mark.parametrize("backend", [None, "plain"])
+@pytest.mark.parametrize("case", MODULATED)
+def test_series_bitwise(case, backend):
+    check_series(case, backend)
+
+
+@pytest.mark.parametrize("case", MODULATED)
+def test_summary(case):
+    check_summary(case)

@@ -1,0 +1,235 @@
+"""Parity helpers between the JAX package and the PyTorch port.
+
+Not a test module: it imports both packages, which only tests may do.
+
+* ``torch_config`` converts a JAX ``SimConfig`` into the port's.
+* ``jax_draw_arrays`` steps JAX's plan stage and channel key splits
+  in-process — ``workload.plan_tick``, then ``jax.random.uniform`` on the
+  keys and shapes that ``simulator._advance_channel``,
+  ``_delivery_mask_dense``, ``_response_mask_compact`` and
+  ``backing_store.commit_writes`` use — and returns every tick's draws in
+  the replay format of ``repro_torch.core.replay``.  No JAX file changes.
+* ``jax_series``/``jax_state_arrays`` flatten JAX results to numpy.
+* ``replay_fixture_arrays``/``write_replay_fixture`` build the committed
+  replay files that ``chip_smoke.py`` runs on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+
+import jax
+import numpy as np
+import torch
+
+from repro.core import metrics as jmet
+from repro.core import simulator as jsim
+from repro.core import workload as jwl
+from repro_torch.core import backing_store as tbs
+from repro_torch.core import simulator as tsim
+from repro_torch.core import workload as twl
+from repro_torch.core.metrics import EMBODIMENT_FIELDS, field_names, summarize
+from repro_torch.core.replay import draws_from_arrays, save_replay
+
+FIXTURE_CASES = ("zipf_outage", "paper_ge")
+FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch", "testdata")
+_PLAN_KEY_FIELDS = ("k_deliver", "k_resp", "k_coll", "rng_next", "state_next")
+
+
+def torch_config(jcfg, **overrides) -> tsim.SimConfig:
+    """The port's ``SimConfig`` with the JAX config's field values."""
+    d = dataclasses.asdict(jcfg)
+    w = d["workload"]
+    if w["trace"] is not None:
+        w["trace"] = twl.TraceSpec(**w["trace"])
+    d["workload"] = twl.WorkloadSpec(**w)
+    d["store"] = tbs.StoreProfile(**d["store"])
+    d.update(overrides)
+    return tsim.SimConfig(**d)
+
+
+def _tick_draws(cfg):
+    """One scan step of JAX's plan and channel draws for ``cfg``."""
+    n = cfg.n_nodes
+    cols = n if cfg.workload.fanout is None else cfg.workload.fanout
+
+    def step(carry, _):
+        plan_state, rng, t = carry
+        plan = jwl.plan_tick(cfg, plan_state, t, rng)
+        out = {"t": t}
+        for f in dataclasses.fields(plan):
+            if f.name not in _PLAN_KEY_FIELDS:
+                out[f"plan.{f.name}"] = getattr(plan, f.name)
+        for f in dataclasses.fields(plan.state_next):
+            out[f"plan.state_next.{f.name}"] = getattr(plan.state_next, f.name)
+        k_mask = plan.k_deliver
+        if cfg.loss_model == "gilbert_elliott":
+            # gilbert_elliott_advance: split(k_deliver, 3) -> (up, down, mask)
+            k_up, k_dn, k_mask = jax.random.split(plan.k_deliver, 3)
+            out["u_ge_up"] = jax.random.uniform(k_up, (n,))
+            out["u_ge_dn"] = jax.random.uniform(k_dn, (n,))
+        if cfg.loss_model != "none":
+            if jsim._needs_delivery_mask(cfg):
+                out["u_deliver"] = jax.random.uniform(k_mask, (n, cols))
+            r = plan.slot_nid.shape[0]
+            out["u_resp"] = jax.random.uniform(plan.k_resp, (r, cols))
+        if cfg.store.collision_prob > 0.0:
+            out["u_coll"] = jax.random.uniform(plan.k_coll, ())
+        return (plan.state_next, plan.rng_next, t + 1), out
+
+    return step
+
+
+def jax_draw_arrays(jcfg, ticks: int, seed: int = 0, start=None) -> dict[str, np.ndarray]:
+    """Every tick's draws as stacked numpy arrays (replay format).
+
+    ``start`` is a JAX ``SimState`` to continue from (default: the initial
+    state of ``seed``).  Only its plan state, key and tick are read.
+    """
+    if start is None:
+        start = jsim.init_sim(dataclasses.replace(jcfg, seed=seed))
+    scan = jax.jit(lambda c: jax.lax.scan(_tick_draws(jcfg), c, None, length=ticks))
+    _, out = scan((start.plan, start.rng, start.tick))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def jax_series(series) -> dict[str, np.ndarray]:
+    return {f.name: np.asarray(getattr(series, f.name)) for f in dataclasses.fields(series)}
+
+
+def jax_state_arrays(state) -> dict[str, np.ndarray]:
+    """A JAX ``SimState`` flattened by field path (``caches.tags``, ...)."""
+    leaves, _ = jax.tree_util.tree_flatten_with_path(state)
+    return {".".join(k.name for k in path): np.array(v) for path, v in leaves}
+
+
+def torch_draws(tcfg, arrays):
+    return draws_from_arrays(tcfg, arrays, "cpu")
+
+
+def assert_series_equal(expected: dict, got, label: str = "") -> None:
+    """Every TickMetrics field but the embodiment ones, bitwise."""
+    for f in field_names():
+        if f in EMBODIMENT_FIELDS:
+            continue
+        np.testing.assert_array_equal(
+            np.asarray(getattr(got, f)), expected[f],
+            err_msg=f"{label}: TickMetrics.{f} diverged",
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def jax_case(name: str, seed: int = 0):
+    """(draw arrays, series, summary) of conformance case ``name`` on JAX's
+    fused engine."""
+    from conformance import CASES
+
+    c = CASES[name]
+    arrays = jax_draw_arrays(c.cfg, c.ticks, seed)
+    _, series = jsim.run_sim(c.cfg, c.ticks, seed, engine="fused",
+                             metrics_every=c.metrics_every)
+    return arrays, jax_series(series), jmet.summarize(series)
+
+
+@functools.lru_cache(maxsize=None)
+def torch_case(name: str, backend, seed: int = 0):
+    """The port's series of case ``name`` on JAX's replayed draws (CPU)."""
+    from conformance import CASES
+
+    c = CASES[name]
+    tcfg = torch_config(c.cfg, probe_backend=backend)
+    _, series = tsim.run_sim(tcfg, c.ticks, device="cpu", metrics_every=c.metrics_every,
+                             draws=torch_draws(tcfg, jax_case(name, seed)[0]))
+    return series
+
+
+# The 16 conformance cases of the directory policy (all but
+# ``paper_replicate``), in three groups so the test workers share them out.
+STREAM = ("paper", "paper_outage", "paper_ge", "stream_churn", "fanout_topk", "trace")
+ZIPF = ("zipf", "zipf_hot", "zipf_outage", "zipf_thinned", "poisson")
+MODULATED = ("bursty", "diurnal", "churn", "storm", "churn_outage")
+
+
+def check_series(name: str, backend) -> None:
+    """The port's TickMetrics series equals JAX's bitwise."""
+    assert_series_equal(jax_case(name)[1], torch_case(name, backend), f"{name}/{backend}")
+
+
+def check_summary(name: str) -> None:
+    """``summarize``: integer fields exactly; float fields to rtol 1e-6,
+    because the two frameworks may add up a float32 series in different
+    orders (the per-tick series themselves are bitwise equal)."""
+    want = jax_case(name)[2]
+    got = summarize(torch_case(name, None))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        if isinstance(w, int):
+            assert got[k] == w, k
+        else:
+            assert abs(got[k] - w) <= 1e-6 * abs(w), (k, got[k], w)
+
+
+def key_pool(rng: np.random.Generator, size: int = 24) -> np.ndarray:
+    """uint32 keys, half of them >= 2**31, plus the NULL tag's pattern."""
+    lo = rng.integers(0, 2**31, size // 2, dtype=np.uint64)
+    hi = rng.integers(2**31, 2**32 - 1, size - size // 2, dtype=np.uint64)
+    return np.concatenate([lo, hi, [2**32 - 1]]).astype(np.uint32)
+
+
+def arbitrary_tables(rng: np.random.Generator, n: int, s: int, w: int, d: int,
+                     pool: np.ndarray) -> dict[str, np.ndarray]:
+    """Arbitrary batched cache tables (JAX dtypes): tags drawn from a small
+    pool, so sets hold duplicate tags, and timestamps tie often."""
+    shape = (n, s, w)
+    return dict(
+        tags=pool[rng.integers(0, len(pool), shape)],
+        data_ts=rng.integers(-1, 12, shape).astype(np.int32),
+        ins_ts=rng.integers(-1, 12, shape).astype(np.int32),
+        origin=rng.integers(-1, n, shape).astype(np.int32),
+        valid=rng.random(shape) < 0.7,
+        dirty=rng.random(shape) < 0.3,
+        last_use=rng.integers(-1, 6, shape).astype(np.int32),
+        data=rng.random((*shape, d)).astype(np.float32),
+    )
+
+
+def as_torch(a: np.ndarray):
+    """numpy -> CPU tensor; uint32 keeps its bit pattern as int32."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a))
+
+
+def as_numpy(t, like: np.ndarray | None = None) -> np.ndarray:
+    """CPU tensor -> numpy, viewed as uint32 where ``like`` is uint32."""
+    a = t.detach().cpu().numpy()
+    if like is not None and np.asarray(like).dtype == np.uint32:
+        a = a.view(np.uint32)
+    return a
+
+
+def replay_fixture_arrays(case: str) -> tuple[tsim.SimConfig, dict]:
+    """(port config, arrays) of the replay file of conformance ``case`` at
+    seed 0: JAX's draws and its fused-engine series."""
+    from conformance import CASES
+
+    c = CASES[case]
+    arrays = jax_draw_arrays(c.cfg, c.ticks, seed=0)
+    _, series = jsim.run_sim(c.cfg, c.ticks, seed=0, engine="fused")
+    arrays.update({f"metrics.{k}": v for k, v in jax_series(series).items()})
+    return torch_config(c.cfg), arrays
+
+
+def write_replay_fixture(case: str, directory: str = FIXTURE_DIR) -> str:
+    """Write ``replay_<case>.npz``; returns its path."""
+    tcfg, arrays = replay_fixture_arrays(case)
+    path = os.path.join(directory, f"replay_{case}.npz")
+    save_replay(path, tcfg, arrays)
+    return path
+
+
+if __name__ == "__main__":
+    for name in FIXTURE_CASES:
+        print(write_replay_fixture(name))
