@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the FLIC fog cache on one NVIDIA card.
+"""Drive the PyTorch/CUDA port of the FLIC fog cache and its serving engine
+on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
@@ -21,7 +22,24 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    outage, 600 ticks, with the kernels and with the inline path; the two
    series must be equal and each kernel must have launched;
 6. ``city``: the paper's stream at N=10,000 nodes with fan-out 32, 120
-   ticks, with the kernels and with the inline path; equal series.
+   ticks, with the kernels and with the inline path; equal series;
+7. ``serve``: the second main path, Granite-8B at full width (random
+   bfloat16 weights from seed 0) serving 8 requests (4 prompts of 512
+   tokens, each twice, 32 new tokens, 4 slots, page 16) through
+   ``ServeEngine`` with the ``paged_attention`` kernel, which must launch
+   once per layer and decode step; again with every kernel call held
+   against the plain version on the same inputs; then teacher-forced with
+   the plain version and with a contiguous-cache ``decode_step`` oracle,
+   which must agree within ``SERVE_TOL``; prefill and decode times, a
+   profile of one decode step, peak memory and the page manager's stats;
+8. ``kernels`` (``paged_attention``): the kernel against its plain version
+   on the serve run's inputs (decode step 20, layer 0), on a long context
+   (16 sequences of up to 32,768 positions) and on edge cases, with times,
+   bounds and a ``scaled_dot_product_attention`` yardstick;
+9. ``serve_replay``: the committed JAX serving fixture through the port
+   with the kernel, teacher-forced, including a tight pool that evicts,
+   spills and fetches pages back; the page manager's stats must equal
+   JAX's.
 
 After ``dense`` and ``city`` a ``profile`` line checks that a tick never
 synchronises the host and says where its time goes on the card.
@@ -47,7 +65,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM 32-bit rate outside the tensor cores
 TIMED_RUNS = 20
 MAX_SPIN_MS = 2_000.0
-KERNELS = ("flic_insert", "flic_update", "flic_lookup")
+FLIC_KERNELS = ("flic_insert", "flic_update", "flic_lookup")
+PAGED = "paged_attention"
 
 
 def emit(phase: str, **fields) -> None:
@@ -261,7 +280,7 @@ def capture_main_path(torch, device, cfg, ticks: int, at: dict) -> dict:
     from repro_torch.core.simulator import run_sim
 
     real = flic.KERNEL_BACKENDS["cuda"]
-    calls = {name: 0 for name in KERNELS}
+    calls = {name: 0 for name in FLIC_KERNELS}
     got = {}
 
     def spy(name, fn):
@@ -274,7 +293,7 @@ def capture_main_path(torch, device, cfg, ticks: int, at: dict) -> dict:
             return fn(*args)
         return call
 
-    flic.KERNEL_BACKENDS["cuda"] = tuple(spy(n, f) for n, f in zip(KERNELS, real))
+    flic.KERNEL_BACKENDS["cuda"] = tuple(spy(n, f) for n, f in zip(FLIC_KERNELS, real))
     try:
         run_sim(dataclasses.replace(cfg, probe_backend="cuda"), ticks, seed=0, device=device)
     finally:
@@ -506,6 +525,531 @@ def engine_phase(torch, device, name, cfg, ticks, must_launch):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-9: Granite-8B served through the paged_attention kernel.
+# ---------------------------------------------------------------------------
+
+# Serve cell: 4 distinct prompts of 512 tokens (whole pages, so prefix
+# reuse is live), each submitted twice, 32 new tokens, 4 slots, page 16.
+SERVE_PROMPTS, SERVE_PROMPT_LEN, SERVE_MAX_NEW = 4, 512, 32
+SERVE_BATCH, SERVE_PAGE = 4, 16
+SERVE_MAX_SEQ = SERVE_PROMPT_LEN + SERVE_MAX_NEW + SERVE_PAGE   # launch/serve.py's rule
+CAPTURE_STEP = 20   # decode step whose layer-0 paged_attention inputs the kernels phase reuses
+# Teacher-forced logits of the plain paged run against the contiguous-cache
+# oracle (both plain PyTorch; they differ in how K/V are laid out and
+# gathered): 0.25 is 8 bfloat16 ulps at |logit| 4.  The kernel run is not
+# held to a logit tolerance at full width: with the JAX package's random
+# weight law (fan-in read from the head axis, so q and k are ~20x larger
+# than a trained model's) attention is near-argmax over scores ~600 apart
+# by less than 1, and one bfloat16 ulp of one attention output element moves
+# the logits by O(1) (``one_ulp_sensitivity``).  The kernel is held instead
+# to the plain version on the identical inputs of every call of the run
+# (``paged_verdict``), and at smoke width to JAX's logits (serve_replay).
+SERVE_TOL = 0.25
+# The JAX fixture in bfloat16: tests/test_torch_serving.py's BF16_TOL and
+# its reason (the frameworks round bfloat16 intermediates at other places).
+REPLAY_TOL = 0.25
+
+
+def serve_prompts(vocab: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    uniq = [[int(t) for t in rng.integers(0, vocab, SERVE_PROMPT_LEN)]
+            for _ in range(SERVE_PROMPTS)]
+    return [uniq[i % SERVE_PROMPTS] for i in range(2 * SERVE_PROMPTS)]
+
+
+def serve_run(torch, cfg, params, device, prompts, backend, script=None, capture=None,
+              shadow=None):
+    """One run of the engine (``TeacherForcedEngine``, which records each
+    step's logits) with the launch counts set to 0 just before it.  Times
+    each prefill and each decode step on the host clock between
+    synchronisations.  With ``capture`` (a dict), copies the inputs of
+    decode step ``CAPTURE_STEP`` and of its layer-0 ``paged_attention``.
+    With ``shadow`` (a dict), holds every kernel call against the plain
+    version on the same inputs (``paged_verdict``), on the card without
+    synchronising: ``shadow["max_err"]`` (largest |kernel - plain|) and
+    ``shadow["excess"]`` are device scalars, ``shadow["calls"]`` counts."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving import engine as em
+
+    eng = em.TeacherForcedEngine(
+        cfg, params, script=script, max_batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
+        page_size=SERVE_PAGE, kernel_backend=backend, device=device)
+    for p in prompts:
+        eng.submit(p, max_new=SERVE_MAX_NEW)
+    prefill_ms, decode_ms = [], []
+    real_prefill, real_step = em.model_prefill, em.paged_decode_step
+    kernel_attn = ops.paged_attention
+
+    def shadow_attn(*args):
+        got = kernel_attn(*args)
+        diff, excess = paged_verdict(torch, got, ref.paged_attention_ref(*args), args)
+        shadow["max_err"] = torch.maximum(shadow["max_err"], diff)
+        shadow["excess"] = torch.maximum(shadow["excess"], excess)
+        shadow["calls"] += 1
+        return got
+
+    attn = kernel_attn if shadow is None else shadow_attn
+
+    def spy_attn(*args):
+        if "attn_args" not in capture:
+            capture["attn_args"] = [a.clone() for a in args]
+        return attn(*args)
+
+    def timed(fn, sink):
+        def call(*args, **kw):
+            if capture is not None and fn is real_step and len(sink) == CAPTURE_STEP:
+                capture["step_args"] = [a.clone() for a in (args[2], args[3], args[6])]
+                ops.paged_attention = spy_attn
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+            finally:
+                ops.paged_attention = attn
+            sink.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
+    em.model_prefill, em.paged_decode_step = timed(real_prefill, prefill_ms), timed(real_step, decode_ms)
+    ops.paged_attention = attn
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        eng.run()
+        torch.cuda.synchronize()
+    finally:
+        em.model_prefill, em.paged_decode_step = real_prefill, real_step
+        ops.paged_attention = kernel_attn
+    wall = time.perf_counter() - t0
+    return eng, dict(wall_s=wall, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                     launches=dict(ops.LAUNCHES))
+
+
+def contiguous_oracle(torch, cfg, params, device, prompts, scripts):
+    """JAX's serving oracle (tests/test_train_ckpt.py:105-134) at batch 4:
+    each prompt prefilled alone, its K/V copied into a contiguous
+    ``decode_cache_specs`` cache, then ``decode_step`` fed the last prompt
+    token and then ``scripts`` (teacher forcing).  Returns (4, steps, V)."""
+    from repro_torch.models.model import decode_cache_specs, decode_step, prefill
+
+    spec = decode_cache_specs(cfg, len(prompts), SERVE_MAX_SEQ)[0]["blk0"]
+    caches = [{"blk0": {n: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                        for n, s in spec.items()}}]
+    for b, p in enumerate(prompts):
+        _, c = prefill(params, cfg, {"tokens": torch.tensor([p], dtype=torch.int32, device=device)})
+        for n in ("k", "v"):
+            caches[0]["blk0"][n][:, b, :len(p)] = c[0]["blk0"][n][:, 0].to(spec[n].dtype)
+    tok = torch.tensor([[p[-1]] for p in prompts], dtype=torch.int32, device=device)
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=device)
+    out = []
+    for i in range(len(scripts[0])):
+        logits, caches = decode_step(params, cfg, tok, pos, caches)
+        out.append(logits[:, 0])
+        tok = torch.tensor([[s[i]] for s in scripts], dtype=torch.int32, device=device)
+        pos = pos + 1
+    return torch.stack(out, dim=1)
+
+
+def decode_profile(torch, cfg, params, pools, step_args, steps: int = 3) -> dict:
+    """Where one decode step's time goes: ``paged_decode_step`` on the
+    inputs of decode step ``CAPTURE_STEP`` (the pools as the run left
+    them), 2 warm-up steps, ``steps`` timed on the host clock, then
+    ``steps`` under ``torch.profiler``; device busy = the CUDA kernels'
+    summed time, the idle share compares it with the unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.serve_step import paged_decode_step
+
+    tok, pos, table = step_args
+
+    def step():
+        return paged_decode_step(params, cfg, tok, pos, pools[0], pools[1], table)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    if busy_ms <= 0:
+        return dict(step_ms=step_ms, device_busy_ms="not measured")
+    pa_ms = sum(e.self_device_time_total for e in kernels
+                if "paged_attention" in e.key) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(
+        step_ms=step_ms, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
+        paged_attention_ms=pa_ms, paged_attention_share_of_busy=pa_ms / busy_ms,
+        kernel_launches_per_step=sum(e.count for e in kernels) / steps,
+        top_kernels_ms_per_step=[[e.key[:80], e.self_device_time_total / 1e3 / steps]
+                                 for e in top],
+    )
+
+
+def logit_diff(torch, a: dict, b, rids) -> float:
+    """Largest |difference| between the recorded logits of ``rids`` in
+    ``a`` (engine logits by rid) and ``b`` (a dict by rid, or a callable)."""
+    worst = 0.0
+    for r in rids:
+        x = torch.stack(a[r]).float()
+        y = b(r) if callable(b) else torch.stack(b[r]).float()
+        if x.shape != y.shape or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"request {r}: logits of shape {tuple(x.shape)} "
+                                 f"against {tuple(y.shape)}, or not finite")
+        worst = max(worst, float((x - y).abs().max()))
+    return worst
+
+
+def one_ulp_sensitivity(torch, cfg, params, pools, step_args) -> float:
+    """The largest logit change of one plain decode step (the inputs of
+    step ``CAPTURE_STEP``) when one element of layer 0's attention output,
+    in an active slot, moves by one bfloat16 ulp: how far the model carries
+    the smallest difference the kernel may make."""
+    from repro_torch.kernels import ref
+    from repro_torch.serving.serve_step import paged_decode_step
+
+    tok, pos, table = step_args
+
+    def step():
+        return paged_decode_step(params, cfg, tok, pos, pools[0], pools[1], table,
+                                 kernel_backend="plain")[0]
+
+    base = step()
+    plain, calls = ref.paged_attention_ref, []
+
+    def nudged(*args):
+        out = plain(*args)
+        if not calls:
+            out[0, 0, 0, 0] += bf16_ulp(torch, out[0, 0, 0, 0])
+        calls.append(1)
+        return out
+
+    ref.paged_attention_ref = nudged
+    try:
+        moved = step()
+    finally:
+        ref.paged_attention_ref = plain
+    return float((moved - base).abs().max())
+
+
+def serve_phase(torch, device) -> dict:
+    """The port's second main path: ``granite_8b`` at full width, random
+    bfloat16 weights from ``torch.Generator`` seed 0, 8 requests through
+    ``ServeEngine`` with the kernel (timed, counted); again with every
+    kernel call held against the plain version on its inputs; then
+    teacher-forced with the plain version and with the contiguous-cache
+    oracle, which must agree within ``SERVE_TOL``."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.model import init_model, model_param_defs
+    from repro_torch.models.params import param_count
+
+    cfg = get_arch("granite_8b")
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator().manual_seed(0), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = serve_prompts(cfg.vocab_size)
+
+    torch.cuda.reset_peak_memory_stats()
+    capture: dict = {}
+    keng, kinfo = serve_run(torch, cfg, params, device, prompts, None, capture=capture)
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(kinfo["decode_ms"])
+    launches = kinfo["launches"]["paged_attention"]
+    if launches != cfg.num_layers * steps or steps == 0:
+        raise AssertionError(f"serve: paged_attention launched {launches} times in "
+                             f"{steps} decode steps of {cfg.num_layers} layers")
+    by_rid = {r.rid: r for r in keng.finished}
+    n = len(prompts)
+    if sorted(by_rid) != list(range(1, n + 1)) or any(
+            len(r.tokens) != SERVE_MAX_NEW for r in keng.finished):
+        raise AssertionError("serve: not every request finished with its tokens")
+    reused = [by_rid[r].reused_prefill for r in range(1, n + 1)]
+    if reused != [False] * SERVE_PROMPTS + [True] * SERVE_PROMPTS:
+        raise AssertionError(f"serve: prefix reuse {reused}, expected the second wave reused")
+    script = {r: by_rid[r].tokens for r in by_rid}
+
+    shadow = {"max_err": torch.zeros((), device=device),
+              "excess": torch.full((), -float("inf"), device=device), "calls": 0}
+    seng, _ = serve_run(torch, cfg, params, device, prompts, None, script=script, shadow=shadow)
+    if shadow["calls"] != launches or float(shadow["excess"]) > 0:
+        raise AssertionError(f"serve: a kernel call left the tolerance of the plain version "
+                             f"(largest error {float(shadow['max_err'])}, "
+                             f"{shadow['calls']} calls)")
+    rerun_diff = logit_diff(torch, keng.logits, seng.logits, by_rid)
+
+    peng, pinfo = serve_run(torch, cfg, params, device, prompts, "plain", script=script)
+    if pinfo["launches"]["paged_attention"] != 0:
+        raise AssertionError("serve: the plain run launched the kernel")
+    first = list(range(1, SERVE_PROMPTS + 1))
+    oracle = contiguous_oracle(torch, cfg, params, device, [prompts[r - 1] for r in first],
+                               [script[r] for r in first]).float()
+
+    def by_prompt(r):
+        return oracle[(r - 1) % SERVE_PROMPTS]
+
+    diff_plain_oracle = logit_diff(torch, peng.logits, by_prompt, by_rid)
+    if not diff_plain_oracle <= SERVE_TOL:
+        raise AssertionError(f"serve: the plain paged run differs from the contiguous oracle "
+                             f"by {diff_plain_oracle} > {SERVE_TOL}")
+    diff_plain = logit_diff(torch, keng.logits, peng.logits, by_rid)
+    diff_oracle = logit_diff(torch, keng.logits, by_prompt, by_rid)
+    agree = sum(int(torch.stack(keng.logits[r]).argmax(-1).eq(by_prompt(r).argmax(-1)).sum())
+                for r in by_rid)
+    max_logit = max(float(torch.stack(v).abs().max()) for v in keng.logits.values())
+    nudge = one_ulp_sensitivity(torch, cfg, params, (keng.pool.k, keng.pool.v),
+                                capture["step_args"])
+
+    prof = decode_profile(torch, cfg, params, (keng.pool.k, keng.pool.v), capture["step_args"])
+    gen_tokens = sum(len(r.tokens) for r in keng.finished)
+    emit("serve", arch=cfg.name, params=param_count(model_param_defs(cfg)),
+         init_s=init_s, requests=n, prompt_len=SERVE_PROMPT_LEN, max_new=SERVE_MAX_NEW,
+         max_batch=SERVE_BATCH, page_size=SERVE_PAGE, decode_steps=steps,
+         prefill_ms=kinfo["prefill_ms"], prefill_ms_plain_run=pinfo["prefill_ms"],
+         decode_ms_per_step_median=statistics.median(kinfo["decode_ms"]),
+         decode_ms_per_step_median_plain=statistics.median(pinfo["decode_ms"]),
+         wall_s=kinfo["wall_s"], generated_tokens=gen_tokens,
+         tokens_per_s=gen_tokens / kinfo["wall_s"],
+         decode_tokens_per_s=gen_tokens / (sum(kinfo["decode_ms"]) / 1e3),
+         launches=kinfo["launches"], prefix_reuse_second_wave=sum(reused[SERVE_PROMPTS:]),
+         paged_calls_checked=shadow["calls"], paged_max_abs_err=float(shadow["max_err"]),
+         rerun_max_abs_diff=rerun_diff, tol=SERVE_TOL,
+         plain_vs_contiguous_max_abs_diff=diff_plain_oracle, max_abs_logit=max_logit,
+         kernel_vs_plain_max_abs_diff=diff_plain, kernel_vs_contiguous_max_abs_diff=diff_oracle,
+         kernel_vs_contiguous_argmax_agree=f"{agree}/{n * SERVE_MAX_NEW}",
+         one_ulp_sensitivity=nudge,
+         peak_memory_bytes=peak, mgr_stats=keng.mgr.stats, profile=prof)
+    return dict(launches=launches, attn_args=capture["attn_args"],
+                max_abs_err=float(shadow["max_err"]))
+
+
+def serve_replay_phase(torch, device) -> None:
+    """The committed JAX fixture (Granite-8B smoke config, bfloat16) through
+    the port with the kernel, teacher-forced, both cases."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.replay import compare_case, load_serve_replay, replay_case
+
+    path = ROOT / "src" / "repro_torch" / "testdata" / "serve_granite8b_smoke.npz"
+    cfg, params, cases = load_serve_replay(path, device)
+    for name, case in cases.items():
+        ops.reset_launches()
+        res = compare_case(case, replay_case(cfg, params, case, device), REPLAY_TOL)
+        torch.cuda.synchronize()
+        res["launches"] = ops.LAUNCHES["paged_attention"]
+        ok = (res["max_abs_diff"] <= REPLAY_TOL and res["argmax_equal_where_decided"]
+              and res["reused_equal"] and res["stats_equal"] and res["launches"] > 0)
+        if not ok:
+            raise AssertionError(f"serve replay {name}: {res}")
+        emit("serve_replay", case=name, tol=REPLAY_TOL, stats=case["stats"], **res)
+
+
+# The paged_attention kernel against its plain version.
+
+def bf16_ulp(torch, x):
+    """The spacing of bfloat16 values at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp(min=2.0**-126)))
+    return torch.exp2(e - 7)
+
+
+def paged_truth(torch, q, k_pages, v_pages, page_table, lengths):
+    """``paged_attention``'s function in float64 arithmetic."""
+    b, hkv, g, d = q.shape
+    s_len = page_table.shape[1] * k_pages.shape[1]
+    table = page_table.long()
+    k = k_pages[table].reshape(b, s_len, hkv, d).double()
+    v = v_pages[table].reshape(b, s_len, hkv, d).double()
+    s = torch.einsum("bhgd,bkhd->bhgk", q.double(), k) / d**0.5
+    mask = torch.arange(s_len, device=q.device)[None] < lengths[:, None]
+    s = torch.where(mask[:, None, None], s, -1e30)
+    return torch.einsum("bhgk,bkhd->bhgd", torch.softmax(s, dim=-1), v)
+
+
+def paged_verdict(torch, got, want, args):
+    """(largest |kernel - plain|, excess) as device scalars; the kernel is
+    within tolerance where the excess is <= 0.
+
+    float32 outputs: within 1e-5 relative of the plain result, plus 1e-5
+    of max|V|.  bfloat16 outputs: the kernel's largest error against
+    float64 arithmetic is at most twice the plain version's, plus 2**-16
+    of max|V|.  Not a fixed number of ulps: on the served model's inputs
+    q.k reaches ~600 over 128 terms, float32 rounds each score by ~1e-3,
+    near-tied scores turn that into weight differences, and both versions
+    land some outputs one or two bfloat16 ulps from each other (and from
+    the exact result).  The test is that the kernel is no less accurate.
+    """
+    vmax = args[2].float().abs().max()
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return diff.max(), (diff - 1e-5 * want.abs() - 1e-5 * vmax).max()
+    truth = paged_truth(torch, *args)
+    err_kernel = (got.double() - truth).abs().max()
+    err_plain = (want.double() - truth).abs().max()
+    return diff.max(), (err_kernel - 2 * err_plain - 2.0**-16 * vmax).float()
+
+
+def paged_check(torch, got, want, args) -> float:
+    """Raise unless the kernel's output is within ``paged_verdict``'s
+    tolerance of the plain one; returns the largest |kernel - plain|."""
+    diff, excess = paged_verdict(torch, got, want, args)
+    if got.dtype != want.dtype or got.shape != want.shape or float(excess) > 0:
+        raise AssertionError(f"paged_attention: differs from the plain version by "
+                             f"{float(diff)} (dtype {got.dtype}, shape {tuple(got.shape)})")
+    return float(diff)
+
+
+def paged_work(q, k_pages, page_table, lengths) -> tuple[int, int, dict]:
+    """(bytes, operations, info) the inputs need: K and V of each sequence's
+    live pages, q, out, the live page-table entries and the lengths;
+    4*G*D operations per (sequence, KV head, live position)."""
+    b, hkv, g, d = q.shape
+    page = k_pages.shape[1]
+    lens = lengths.long().clamp(min=0)
+    live_pages = int(((lens + page - 1) // page).clamp(max=page_table.shape[1]).sum())
+    nbytes = (2 * live_pages * page * hkv * d * k_pages.element_size()
+              + 2 * q.numel() * q.element_size() + live_pages * 4 + b * 4)
+    ops_n = int(lens.sum()) * hkv * g * 4 * d
+    return nbytes, ops_n, dict(B=b, Hkv=hkv, G=g, D=d, page=page, pool_pages=k_pages.shape[0],
+                               max_pages=page_table.shape[1], live_pages=live_pages,
+                               positions=int(lens.sum()))
+
+
+def sdpa_args(torch, q, k_pages, v_pages, page_table, lengths):
+    """The same function as one ``scaled_dot_product_attention`` call on K
+    and V gathered to contiguous beforehand (B, Hkv, S, D), with a length
+    mask and GQA; a yardstick only (the port never calls it)."""
+    b, hkv, g, d = q.shape
+    s = page_table.shape[1] * k_pages.shape[1]
+
+    def gather(pages):
+        return pages[page_table.long()].reshape(b, s, hkv, d).transpose(1, 2).contiguous()
+
+    mask = (torch.arange(s, device=q.device)[None] < lengths[:, None])[:, None, None, :]
+    return q.reshape(b, hkv * g, 1, d), gather(k_pages), gather(v_pages), mask
+
+
+def paged_case(torch, args, cycles_per_ms, flush, library: bool) -> dict:
+    """Kernel against plain on ``args``; both timed (the L2 cache flushed
+    before each run: in a decode step the 35 other layers' weights pass
+    through it between two calls of one layer), and the library call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    got = ops.paged_attention(*args)
+    torch.cuda.synchronize()
+    want = ref.paged_attention_ref(*args)
+    err = paged_check(torch, got, want, args)
+
+    def fresh():
+        flush.zero_()
+        return args
+
+    nbytes, ops_n, info = paged_work(args[0], args[1], args[3], args[4])
+    b_ms, b_by = bound(nbytes, ops_n)
+    out = dict(info, max_abs_err=err, ms=time_ms(torch, ops.paged_attention, fresh, cycles_per_ms),
+               plain_ms=time_ms(torch, ref.paged_attention_ref, fresh, cycles_per_ms),
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops_n, library_ms=None)
+    if library:
+        lib = sdpa_args(torch, *args)
+
+        def sdpa(qs, ks, vs, mask):
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+        def fresh_lib():
+            flush.zero_()
+            return lib
+
+        lib_out = sdpa(*lib).reshape(want.shape)
+        out["library_max_abs_diff"] = float((lib_out.float() - want.float()).abs().max())
+        out["library_ms"] = time_ms(torch, sdpa, fresh_lib, cycles_per_ms)
+        del lib
+    return out
+
+
+def long_context_case(torch, device, gen):
+    """B=16 sequences of up to 32,768 positions (decode_32k's length, the
+    batch cut from 128), Granite's KV heads and widths, one layer's pool of
+    32,768 pages (2.1 GB); the page table is a random permutation of the
+    pool, entries past each length 0."""
+    b, hkv, g, d, page, max_pages = 16, 8, 4, 128, 16, 2048
+    n_pool = b * max_pages
+    q = torch.randn((b, hkv, g, d), generator=gen, device=device).to(torch.bfloat16)
+    kp = torch.randn((n_pool, page, hkv, d), generator=gen, device=device, dtype=torch.bfloat16)
+    vp = torch.randn((n_pool, page, hkv, d), generator=gen, device=device, dtype=torch.bfloat16)
+    lengths = torch.randint(1, max_pages * page + 1, (b,), generator=gen, device=device,
+                            dtype=torch.int32)
+    table = torch.randperm(n_pool, generator=gen, device=device).to(torch.int32).reshape(b, max_pages)
+    live = (lengths.long()[:, None] + page - 1) // page
+    table[torch.arange(max_pages, device=device)[None] >= live] = 0
+    return [q, kp, vp, table, lengths]
+
+
+def edge_cases(torch, device, gen) -> dict:
+    """Random states at the serve path's shapes (page 16, 35 page slots, a
+    280-page pool): lengths 1, a full table, 0 (every slot masked: a
+    uniform softmax in both versions), an inactive slot (page 0, length 1)
+    and random ones; K/V in bfloat16 with q in bfloat16 (the path as
+    served) and float32 (a float32 model over the bfloat16 pool), and all
+    in float32."""
+    b, hkv, g, d, page, max_pages, n_pool = 6, 8, 4, 128, 16, 35, 280
+    lengths = torch.randint(1, max_pages * page + 1, (b,), generator=gen, device=device,
+                            dtype=torch.int32)
+    lengths[0], lengths[1], lengths[2], lengths[4] = 1, max_pages * page, 0, 1
+    table = torch.randperm(n_pool, generator=gen, device=device)[: b * max_pages]
+    table = table.to(torch.int32).reshape(b, max_pages)
+    live = ((lengths.long() + page - 1) // page).clamp(min=1)
+    table[torch.arange(max_pages, device=device)[None] >= live[:, None]] = 0
+    table[4] = 0
+    cases = {}
+    for qdt, kvdt in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+                      (torch.float32, torch.float32)):
+        q = torch.randn((b, hkv, g, d), generator=gen, device=device).to(qdt)
+        kp = torch.randn((n_pool, page, hkv, d), generator=gen, device=device).to(kvdt)
+        vp = torch.randn((n_pool, page, hkv, d), generator=gen, device=device).to(kvdt)
+        cases[f"edges_q{str(qdt)[6:]}_kv{str(kvdt)[6:]}"] = [q, kp, vp, table.clone(), lengths]
+    return cases
+
+
+def paged_kernel_phase(torch, device, attn_args, cycles_per_ms) -> dict:
+    """``paged_attention`` against its plain version: (a) the inputs of
+    decode step ``CAPTURE_STEP``'s layer 0 in the serve run, (b) a long
+    context, (c) edge cases; and a page id outside the pool gives NaN."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)   # > the 50 MB L2
+    res = {"serve_step20_layer0": paged_case(torch, attn_args, cycles_per_ms, flush, True)}
+    long = long_context_case(torch, device, gen)
+    res["long_context_b16_32k"] = paged_case(torch, long, cycles_per_ms, flush, True)
+    del long
+    torch.cuda.empty_cache()
+    for label, args in edge_cases(torch, device, gen).items():
+        got = ops.paged_attention(*args)
+        res[label] = dict(max_abs_err=paged_check(torch, got, ref.paged_attention_ref(*args), args))
+    q, kp, vp, table, lengths = attn_args
+    bad = table.clone()
+    bad[0, 0] = kp.shape[0]
+    out = ops.paged_attention(q, kp, vp, bad, lengths)
+    if not (bool(out[0].isnan().all()) and not bool(out[1:].isnan().any())):
+        raise AssertionError("paged_attention: a page id outside the pool must give NaN for its row alone")
+    res["bad_page_id_gives_nan"] = True
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -519,6 +1063,9 @@ def main() -> None:
     from repro_torch.kernels import build
 
     device = torch.device("cuda")
+    # float32 products in full float32 (the plain versions are references)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -545,21 +1092,28 @@ def main() -> None:
 
     replay_phase(torch, device)
 
-    dense_launches, _ = engine_phase(torch, device, "dense", dense_cfg, 600, KERNELS)
+    dense_launches, _ = engine_phase(torch, device, "dense", dense_cfg, 600, FLIC_KERNELS)
     city_launches, city = engine_phase(torch, device, "city", city_cfg, 120, ("flic_insert",))
     if city["queue_dropped"] <= 0:
         raise AssertionError("city: the writer ring was expected to overflow")
+
+    serve = serve_phase(torch, device)
+    pres = paged_kernel_phase(torch, device, serve.pop("attn_args"), cycles_per_ms)
+    emit("kernels", kernel=PAGED, spin_cycles_per_ms=cycles_per_ms, **pres)
+    serve_replay_phase(torch, device)
 
     src = {
         "flic_insert": "src/repro/kernels/flic_insert.py:122",
         "flic_update": "src/repro/kernels/flic_update.py:77",
         "flic_lookup": "src/repro/kernels/flic_lookup.py:61",
     }
-    # Headline case of each kernel: the first main-path case of the kernels
-    # phase.  Launches: both main-path runs (dense, then city), each counted
-    # from 0.  max_abs_err is 0: every kernel passed a bitwise comparison.
+    # Headline case of each FLIC kernel: the first main-path case of the
+    # kernels phase.  Launches: both main-path runs (dense, then city), each
+    # counted from 0.  max_abs_err is 0: every FLIC kernel passed a bitwise
+    # comparison.  paged_attention: the serve run's launches, its headline
+    # the serve step's inputs, its error the largest over all its cases.
     lines = []
-    for name in KERNELS:
+    for name in FLIC_KERNELS:
         head = next(iter(kres[name].values()))
         lines.append({
             "name": name, "route": "cuda",
@@ -569,6 +1123,15 @@ def main() -> None:
             "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": None,
         })
+    head = pres["serve_step20_layer0"]
+    lines.append({
+        "name": PAGED, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{PAGED}.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:74", "launches": serve["launches"],
+        "max_abs_err": max([serve["max_abs_err"]]
+                           + [v["max_abs_err"] for v in pres.values() if isinstance(v, dict)]),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+    })
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,10 @@ launches the kernel from ``csrc/`` on the current stream and raises if the
 launch reports an error.  There is no fallback: a CUDA tensor either goes
 through the kernel or the call raises.
 
-The kernels update the cache tables IN PLACE (``flic_insert`` all eight,
-``flic_update`` ``data_ts``/``last_use``/``data``) and return those same
-tensors; the plain versions return new ones.
+The FLIC kernels update the cache tables IN PLACE (``flic_insert`` all
+eight, ``flic_update`` ``data_ts``/``last_use``/``data``) and return those
+same tensors; the plain versions return new ones.  ``paged_attention``
+allocates its output.
 
 ``LAUNCHES[name]`` counts the calls that launched kernel ``name``.
 """
@@ -22,7 +23,9 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES: dict[str, int] = {"flic_insert": 0, "flic_update": 0, "flic_lookup": 0}
+LAUNCHES: dict[str, int] = {
+    "flic_insert": 0, "flic_update": 0, "flic_lookup": 0, "paged_attention": 0,
+}
 
 
 def reset_launches() -> None:
@@ -70,7 +73,7 @@ def _launch(name: str, n_int: int, device, tensors, ints) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
 
-I32, F32, BOOL = torch.int32, torch.float32, torch.bool
+I32, F32, BF16, BOOL = torch.int32, torch.float32, torch.bfloat16, torch.bool
 
 
 def flic_insert(tags, data_ts, ins_ts, origin, valid, dirty, last_use, data,
@@ -161,3 +164,43 @@ def flic_lookup(tags, data_ts, valid, data, keys, sidx):
         (c, q, s, w, d),
     )
     return hit, ts, payload, way
+
+
+def paged_attention(q, k_pages, v_pages, page_table, lengths):
+    """Decode attention through a page table; see ``ref.paged_attention_ref``.
+
+    ``q`` (B, Hkv, G, D) and ``k_pages``/``v_pages`` (P, page, Hkv, D) in
+    bfloat16 or float32 (K and V alike; on CUDA not a bfloat16 ``q`` over
+    float32 pages), ``page_table`` (B, max_pages) and ``lengths`` (B,)
+    int32.  Returns (B, Hkv, G, D) in ``q``'s dtype.
+    On CUDA, D * (bytes of a K/V value) must be a multiple of 16 (the kernel
+    reads K/V in 16-byte loads), every page id must lie in [0, P) (a
+    (sequence, head) with one outside gets NaN), and B <= 65,535.
+    """
+    if not _on_cuda(q):
+        return ref.paged_attention_ref(q, k_pages, v_pages, page_table, lengths)
+    b, hkv, g, d = q.shape
+    n_pool, page = k_pages.shape[:2]
+    max_pages = page_table.shape[-1]
+    if (q.dtype, k_pages.dtype) not in ((BF16, BF16), (F32, BF16), (F32, F32)):
+        raise ValueError(f"q and K/V dtypes {q.dtype}, {k_pages.dtype}: the kernel takes "
+                         "bfloat16/bfloat16, float32/bfloat16 or float32/float32")
+    kv = (n_pool, page, hkv, d)
+    _check(
+        q.device,
+        q=(q, q.dtype, (b, hkv, g, d)), k_pages=(k_pages, k_pages.dtype, kv),
+        v_pages=(v_pages, k_pages.dtype, kv), page_table=(page_table, I32, (b, max_pages)),
+        lengths=(lengths, I32, (b,)),
+    )
+    if (d * k_pages.element_size()) % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("K/V rows must be 16-byte multiples on 16-byte aligned storage")
+    if b > 65_535:
+        raise ValueError(f"batch {b} exceeds the kernel's grid limit of 65,535")
+    out = torch.empty_like(q)
+    _launch(
+        "paged_attention", 9, q.device,
+        (q, k_pages, v_pages, page_table, lengths, out),
+        (b, hkv, g, d, page, n_pool, max_pages, int(q.dtype == BF16),
+         int(k_pages.dtype == BF16)),
+    )
+    return out

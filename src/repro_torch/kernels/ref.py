@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the three FLIC kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Ports of ``repro.kernels.ref`` (``flic_lookup_ref``, ``flic_update_ref``,
-``flic_insert_ref``) with the same contracts.  They are the CPU path of the
-``kernels.ops`` wrappers, the ``probe_backend="plain"`` path of the engine,
-and what ``chip_smoke.py`` holds each CUDA kernel against on the card.
+``flic_insert_ref``, ``paged_attention_ref``) with the same contracts.  They
+are the CPU path of the ``kernels.ops`` wrappers, the
+``probe_backend="plain"`` path of the simulator and the
+``kernel_backend="plain"`` path of the serving engine, and what
+``chip_smoke.py`` holds each CUDA kernel against on the card.
 
 Differences in form from the JAX oracles, none in result:
 
@@ -15,9 +17,21 @@ Differences in form from the JAX oracles, none in result:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 INT32_MAX = 2**31 - 1
+
+
+@functools.cache
+def inv_sqrt(d: int) -> float:
+    """``1 / sqrt(d)`` as JAX computes it, both steps in float32, returned
+    as a Python float (exactly that float32 value): multiplying a float32
+    tensor by it rounds as JAX does, and no device tensor is made from the
+    host, which would make the host wait for the card."""
+    one = torch.ones((), dtype=torch.float32)
+    return float(one / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -160,3 +174,28 @@ def flic_insert_ref(tags, data_ts, ins_ts, origin, valid, dirty, last_use, data,
             torch.where(onehot[..., None], line_data[:, None, :], data[rows, s]),
         ),
     )
+
+
+# ---------------------------------------------------------------------------
+# paged_attention: decode attention through a FLIC page table
+# ---------------------------------------------------------------------------
+
+def paged_attention_ref(q, k_pages, v_pages, page_table, lengths):
+    """One-token attention per (sequence, KV head) over KV pages.
+
+    ``q`` (B, Hkv, G, D); ``k_pages``/``v_pages`` (P, page, Hkv, D);
+    ``page_table`` (B, max_pages) int32; ``lengths`` (B,) int32.  Gathers
+    each sequence's pages, masks positions at or past ``lengths[b]`` with
+    -1e30, takes a full softmax in float32 and returns ``q``'s dtype.
+    """
+    b, hkv, g, d = q.shape
+    page = k_pages.shape[1]
+    max_pages = page_table.shape[1]
+    table = page_table.long()
+    k = k_pages[table].reshape(b, max_pages * page, hkv, d)
+    v = v_pages[table].reshape(b, max_pages * page, hkv, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", q.float(), k.float()) * inv_sqrt(d)
+    mask = torch.arange(max_pages * page, device=q.device)[None] < lengths[:, None]
+    s = torch.where(mask[:, None, None], s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgk,bkhd->bhgd", w, v.float()).to(q.dtype)

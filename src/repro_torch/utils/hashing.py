@@ -57,3 +57,20 @@ def hash2_u32_unsigned(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def hash2_u32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hash a pair of 32-bit arrays to one (order-sensitive); int32 bit pattern."""
     return to_i32(hash2_u32_unsigned(a, b))
+
+
+def _splitmix_int(x: int) -> int:
+    x = (x + _GOLDEN) & MASK32
+    x = ((x ^ (x >> 16)) * _M1) & MASK32
+    x = ((x ^ (x >> 13)) * _M2) & MASK32
+    return x ^ (x >> 16)
+
+
+def hash2_u32_int(a: int, b: int) -> int:
+    """``hash2_u32`` of two Python ints (their low 32 bits), as the unsigned
+    value in [0, 2**32): for host-side keys, one at a time, without
+    launching a tensor op per key."""
+    a &= MASK32
+    b &= MASK32
+    mix = (b + _GOLDEN + ((a << 6) & MASK32) + (a >> 2)) & MASK32
+    return _splitmix_int(_splitmix_int(a) ^ mix)

@@ -29,7 +29,7 @@ def test_port_never_imports_jax_or_the_jax_package():
 
 def test_every_cuda_kernel_has_a_counted_wrapper():
     sources = build.sources()
-    assert set(sources) == {"flic_insert", "flic_update", "flic_lookup"}
+    assert set(sources) == {"flic_insert", "flic_update", "flic_lookup", "paged_attention"}
     assert set(ops.LAUNCHES) == set(sources)
     for name, src in sources.items():
         text = src.read_text()

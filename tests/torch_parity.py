@@ -11,12 +11,14 @@ Not a test module: it imports both packages, which only tests may do.
   the replay format of ``repro_torch.core.replay``.  No JAX file changes.
 * ``jax_series``/``jax_state_arrays`` flatten JAX results to numpy.
 * ``replay_fixture_arrays``/``write_replay_fixture`` build the committed
-  replay files that ``chip_smoke.py`` runs on the card.
+  replay files that ``chip_smoke.py`` runs on the card;
+  ``serve_fixture``/``write_serve_fixture`` the serving one.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import os
 
 import jax
@@ -230,6 +232,105 @@ def write_replay_fixture(case: str, directory: str = FIXTURE_DIR) -> str:
     return path
 
 
+
+
+# ---------------------------------------------------------------------------
+# Serving: the JAX engine's run on Granite-8B's smoke config, as a fixture.
+# ---------------------------------------------------------------------------
+
+SERVE_FIXTURE = os.path.join(FIXTURE_DIR, "serve_granite8b_smoke.npz")
+
+
+def jax_serve_run(jcfg, jparams, prompts, max_new, **engine_kw):
+    """Run the JAX ``ServeEngine`` (``kernel_backend="xla"``) on ``prompts``;
+    returns (engine, ``{rid: (steps, V) float32 logits}``).  The logits are
+    read by wrapping ``repro.serving.engine.paged_decode_step`` for the
+    length of the run; no JAX file changes."""
+    import repro.serving.engine as jeng
+
+    eng = jeng.ServeEngine(jcfg, jparams, kernel_backend="xla", **engine_kw)
+    logits: dict[int, list] = {}
+    real = jeng.paged_decode_step
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        rows = np.asarray(out[0][:, 0], np.float32)
+        for slot, req in enumerate(eng.slots):
+            if req is not None:
+                logits.setdefault(req.rid, []).append(rows[slot])
+        return out
+
+    jeng.paged_decode_step = spy
+    try:
+        for p in prompts:
+            eng.submit(p, max_new=max_new)
+        eng.run()
+    finally:
+        jeng.paged_decode_step = real
+    return eng, {rid: np.stack(rows) for rid, rows in logits.items()}
+
+
+def jax_serve_case(jcfg, jparams, prompts, max_new, max_batch, max_seq, page_size,
+                   num_pages=None) -> dict:
+    """One replay case (``repro_torch.serving.replay`` format) from a JAX run."""
+    eng, logits = jax_serve_run(jcfg, jparams, prompts, max_new, max_batch=max_batch,
+                                max_seq=max_seq, page_size=page_size, num_pages=num_pages)
+    by_rid = {r.rid: r for r in eng.finished}
+    rids = range(1, len(prompts) + 1)
+    return {
+        "engine": np.asarray([max_batch, max_seq, page_size, num_pages or 0], np.int32),
+        "prompts": np.asarray(prompts, np.int32),
+        "max_new": np.full((len(prompts),), max_new, np.int32),
+        "tokens": np.asarray([by_rid[r].tokens for r in rids], np.int32),
+        "logits": np.stack([logits[r] for r in rids]),
+        "reused": np.asarray([by_rid[r].reused_prefill for r in rids]),
+        "stats": json.dumps(eng.mgr.stats, sort_keys=True),
+    }
+
+
+def serve_prompts(vocab: int, n: int, length: int, seed: int, repeat: int = 2):
+    """``n`` distinct prompts of ``length`` tokens, the list repeated."""
+    rng = np.random.default_rng(seed)
+    uniq = [[int(t) for t in rng.integers(0, vocab, length)] for _ in range(n)]
+    return uniq * repeat
+
+
+def serve_fixture() -> tuple:
+    """(JAX config, flat numpy params, cases) of the committed serve fixture:
+    Granite-8B's smoke config in bfloat16 (the path as served), weights
+    from ``PRNGKey(0)``.  ``main``: 4 prompts of 16 tokens (whole pages),
+    each submitted twice, max_batch 2, page 8, 6 new tokens, so the second
+    wave reuses the first's pages.  ``tight``: a 5-page pool (4 usable) and
+    prompts p1, p2, p3, p1 of 8 tokens at batch 1, so p3 evicts p1's pages
+    to the store and the last request fetches them back."""
+    from repro.config import get_smoke_arch
+    from repro.models import init_model
+
+    jcfg = get_smoke_arch("granite_8b")
+    jparams = init_model(jax.random.PRNGKey(0), jcfg)
+    flat = {"/".join(k.key for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    v = jcfg.vocab_size
+    p1, p2, p3 = serve_prompts(v, 3, 8, seed=1, repeat=1)
+    cases = {
+        "main": jax_serve_case(jcfg, jparams, serve_prompts(v, 4, 16, seed=0), 6,
+                               max_batch=2, max_seq=64, page_size=8),
+        "tight": jax_serve_case(jcfg, jparams, [p1, p2, p3, p1], 4, max_batch=1,
+                                max_seq=32, page_size=8, num_pages=5),
+    }
+    return jcfg, flat, cases
+
+
+def write_serve_fixture(path: str = SERVE_FIXTURE) -> str:
+    from repro_torch.config import ModelConfig
+    from repro_torch.serving.replay import save_serve_replay
+
+    jcfg, flat, cases = serve_fixture()
+    save_serve_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), flat, cases)
+    return path
+
+
 if __name__ == "__main__":
     for name in FIXTURE_CASES:
         print(write_replay_fixture(name))
+    print(write_serve_fixture())
