@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the FLIC fog cache and its serving engine
-on one NVIDIA card.
+"""Drive the PyTorch/CUDA port of the FLIC fog cache, its serving engine
+and its Mamba2 model on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
@@ -39,7 +39,30 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 9. ``serve_replay``: the committed JAX serving fixture through the port
    with the kernel, teacher-forced, including a tight pool that evicts,
    spills and fetches pages back; the page manager's stats must equal
-   JAX's.
+   JAX's;
+10. ``merge``: ``flic_merge``'s path, its entry ``ops.flic_merge``
+    reconciling the dense cell's tables frozen at the outage's start (tick
+    300) with those at its end (tick 420), launched once;
+11. ``kernels`` (``flic_merge``): the kernel against its plain version
+    (bitwise) on that catch-up, on ``kernels_bench.py``'s geometry and on
+    random replicas with ties and invalid lines, timed and bound;
+12. ``ssm``: the third main path, Mamba2-370M at full width (random
+    weights from seed 0), 4 prompts of 2,048 tokens prefilled and decoded
+    32 greedy steps with the ``ssd_scan`` kernel (48 launches, one a layer
+    of the prefill); the plain scan must give the same prefill logits,
+    states and tokens bit for bit, and every kernel call equals the plain
+    version on its inputs; one more prefill with Mamba2's published
+    ``a_log``/``dt_bias`` draws, whose chunk decays are not 0, held kernel
+    against plain in the same way; prefill and decode times, profiles of a decode
+    step and a prefill, peak memory, the share of chunk decays that are 0,
+    and decode step k against a prefill of the prompt and k tokens;
+13. ``kernels`` (``ssd_scan``): the kernel against its plain version
+    (bitwise) on the served prefill's layer 0, a 128-chunk long context,
+    random decays with an initial state and ``kernels_bench.py``'s
+    geometry, timed and bound;
+14. ``ssm_replay``: the committed JAX Mamba2 fixture (float32 and
+    bfloat16) through the port with the kernel, teacher-forced, within the
+    CPU tests' tolerances.
 
 After ``dense`` and ``city`` a ``profile`` line checks that a tick never
 synchronises the host and says where its time goes on the card.
@@ -67,6 +90,14 @@ TIMED_RUNS = 20
 MAX_SPIN_MS = 2_000.0
 FLIC_KERNELS = ("flic_insert", "flic_update", "flic_lookup")
 PAGED = "paged_attention"
+REPLACES = {   # the TPU kernel each CUDA kernel replaces (the def of its pallas_call)
+    "flic_insert": "src/repro/kernels/flic_insert.py:122",
+    "flic_update": "src/repro/kernels/flic_update.py:77",
+    "flic_lookup": "src/repro/kernels/flic_lookup.py:61",
+    "paged_attention": "src/repro/kernels/paged_attention.py:74",
+    "flic_merge": "src/repro/kernels/flic_merge.py:36",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:45",
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1050,6 +1081,468 @@ def paged_kernel_phase(torch, device, attn_args, cycles_per_ms) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-11: flic_merge, replica catch-up on the dense cell's tables.
+# ---------------------------------------------------------------------------
+
+MERGE_AT = (300, 420)   # the dense cell's outage starts at tick 300 and ends at 420
+
+
+def dense_tables_at(torch, device, cfg, ticks) -> dict:
+    """The dense cell's cache tables (tags, data_ts, valid, data) after
+    each tick count in ``ticks``, from one run with the kernels, stepped as
+    ``run_sim`` steps it (the same generator and seed)."""
+    from repro_torch.core.simulator import draw_tick, init_sim, sim_tick
+
+    cfg = dataclasses.replace(cfg, probe_backend="cuda")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    state = init_sim(cfg, device)
+    out = {}
+    for t in range(max(ticks)):
+        state, _ = sim_tick(cfg, state, draw_tick(cfg, state.plan, t, gen))
+        if t + 1 in ticks:
+            c = state.caches
+            out[t + 1] = [x.clone() for x in (c.tags, c.data_ts, c.valid, c.data)]
+    return out
+
+
+def flat_lines(tables):
+    """(N, S, W[, D]) tables as (N*S, W[, D]): one shard of N*S sets."""
+    tags, ts, valid, data = tables
+    n, s, w = tags.shape
+    return [tags.reshape(n * s, w), ts.reshape(n * s, w), valid.reshape(n * s, w),
+            data.reshape(n * s, w, data.shape[-1])]
+
+
+def merge_phase(torch, device, cfg) -> dict:
+    """``flic_merge``'s path: its entry ``ops.flic_merge`` reconciles a
+    replica that froze when the dense cell's outage began (tick 300) with
+    the live tables when it ended (tick 420), the catch-up its docstring
+    names; counts set to 0 just before, read just after."""
+    from repro_torch.kernels import ops, ref
+
+    tables = dense_tables_at(torch, device, cfg, MERGE_AT)
+    a, b = (flat_lines(tables[t]) for t in MERGE_AT)
+    ops.reset_launches()
+    tags, ts, valid, data = ops.flic_merge(*a, *b)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if launches["flic_merge"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"merge: expected one flic_merge launch, got {launches}")
+    for i, want in enumerate(ref.flic_merge_ref(*a, *b)):
+        if not torch.equal((tags, ts, valid, data)[i], want):
+            raise AssertionError(f"merge: output {i} differs from the plain version")
+    take_b = b[2] & (~a[2] | (b[1] > a[1]))
+    emit("merge", ticks=list(MERGE_AT), sets=a[0].shape[0], ways=a[0].shape[1],
+         dim=a[3].shape[-1], launches=launches["flic_merge"],
+         lines_valid_a=_count(a[2]), lines_valid_b=_count(b[2]),
+         lines_taken_from_b=_count(take_b), lines_tied=_count(a[2] & b[2] & (a[1] == b[1])),
+         lines_valid_merged=_count(valid))
+    return dict(launches=launches["flic_merge"], args=a + b)
+
+
+def merge_work(args) -> tuple[int, int, dict]:
+    """Bytes: both replicas' timestamp and valid flag (they decide the
+    line), the tag and payload of the replica each line takes (the other's
+    are never needed), and the merged line written; operations: four
+    compares and selects a line."""
+    tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b = args
+    lines, d = tags_a.numel(), data_a.shape[-1]
+    take_b = valid_b & (~valid_a | (ts_b > ts_a))
+    nbytes = lines * (2 * (4 + 1) + 4 + 4 * d) + lines * (9 + 4 * d)
+    return nbytes, 4 * lines, dict(S=tags_a.shape[0], W=tags_a.shape[1], D=d, lines=lines,
+                                   taken_from_b=_count(take_b))
+
+
+def merge_random(torch, gen, s, w, d):
+    """Two arbitrary replicas with forced ties, lines invalid in both, and
+    lines where B is newer but invalid."""
+    dev = gen.device
+
+    def replica():
+        return [torch.randint(0, 2**31 - 1, (s, w), generator=gen, device=dev, dtype=torch.int32),
+                torch.randint(0, 10_000, (s, w), generator=gen, device=dev, dtype=torch.int32),
+                torch.rand((s, w), generator=gen, device=dev) < 0.7,
+                torch.randn((s, w, d), generator=gen, device=dev)]
+
+    a, b = replica(), replica()
+
+    def some(p):
+        return torch.rand((s, w), generator=gen, device=dev) < p
+
+    tie, none, stale = some(0.2), some(0.1), some(0.1)
+    b[1] = torch.where(tie, a[1], b[1])
+    a[2], b[2] = a[2] & ~none, b[2] & ~none
+    b[1] = torch.where(stale, a[1] + 1, b[1])
+    b[2] = b[2] & ~stale
+    return a + b
+
+
+def merge_kernel_phase(torch, device, catch_up, cycles_per_ms) -> dict:
+    """``flic_merge`` bitwise against its plain version and timed (the L2
+    cache flushed before each run): (a) the dense cell's catch-up, (b)
+    ``benchmarks/kernels_bench.py``'s geometry, (c) random replicas with
+    ties, lines invalid in both and invalid newer lines, at a set count no
+    block size divides."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)   # > the 50 MB L2
+    cases = {"dense_catch_up_t300_t420": catch_up,
+             "kernels_bench_s512_w4_d16": merge_random(torch, gen, 512, 4, 16),
+             "random_s4099_w4_d8": merge_random(torch, gen, 4099, 4, 8)}
+    res = {}
+    for label, args in cases.items():
+        got = ops.flic_merge(*args)
+        torch.cuda.synchronize()
+        want = ref.flic_merge_ref(*args)
+        for i, (g, w) in enumerate(zip(got, want)):
+            bits = (lambda t: t.view(torch.int32)) if g.dtype == torch.float32 else (lambda t: t)
+            if g.dtype != w.dtype or not torch.equal(bits(g), bits(w)):
+                raise AssertionError(f"flic_merge {label}: output {i} differs from the plain version")
+
+        def fresh():
+            flush.zero_()
+            return args
+
+        nbytes, ops_n, info = merge_work(args)
+        b_ms, b_by = bound(nbytes, ops_n)
+        res[label] = dict(info, max_abs_err=float((got[3] - want[3]).abs().max()),
+                          ms=time_ms(torch, ops.flic_merge, fresh, cycles_per_ms),
+                          plain_ms=time_ms(torch, ref.flic_merge_ref, fresh, cycles_per_ms),
+                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops_n,
+                          library_ms=None)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phases 12-14: Mamba2-370M through the ssd_scan kernel.
+# ---------------------------------------------------------------------------
+
+# Traffic: 4 prompts of 2,048 seeded tokens (8 chunks of 256), then 32
+# greedy decode steps, at the published width (nothing cut).
+SSM_ARCH = "mamba2_370m"
+SSM_BATCH, SSM_PROMPT_LEN, SSM_DECODE_STEPS = 4, 2048, 32
+SSM_TIMED_PREFILLS = 3
+SSM_CONSISTENCY_K = (1, 8)
+
+
+def ssm_generate(torch, cfg, params, tokens, scan) -> dict:
+    """``prefill`` of ``tokens`` through the chunk scan ``scan``, then
+    ``SSM_DECODE_STEPS`` greedy ``decode_step``s, each call timed on the host clock between
+    synchronisations.  Token 0 is the prefill's argmax, token k the argmax
+    of decode step k (fed token k-1)."""
+    from repro_torch.models.model import decode_step, prefill
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, cfg, {"tokens": tokens}, ssd_scan=scan)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    states = caches[0]["blk0"]          # decode returns new tensors: these stay the prefill's
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    pos = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32, device=tokens.device)
+    gen, step_logits, decode_ms = [tok], [], []
+    for _ in range(SSM_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, caches = decode_step(params, cfg, tok, pos, caches)
+        tok = out[:, 0].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+        step_logits.append(out[:, 0])
+        gen.append(tok)
+        pos = pos + 1
+    return dict(prefill_logits=logits[:, -1], conv=states["conv"], ssd=states["ssd"],
+                tokens=torch.cat(gen, dim=1), logits=torch.stack(step_logits),
+                prefill_ms=prefill_ms, decode_ms=decode_ms, last=(tok, pos, caches))
+
+
+def profile_calls(torch, fn, calls: int, host_ms: float, name: str) -> dict:
+    """``fn()`` ``calls`` times under ``torch.profiler``: device busy ms a
+    call (the CUDA kernels' summed time), the idle share against
+    ``host_ms`` (the unprofiled call), kernel launches a call, the time of
+    kernel ``name`` and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    if busy_ms <= 0:
+        return dict(host_ms=host_ms, device_busy_ms="not measured")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(
+        host_ms=host_ms, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / host_ms,
+        kernel_launches=sum(e.count for e in kernels) / calls,
+        **{f"{name}_ms": sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / calls},
+        top_kernels_ms=[[e.key[:80], e.self_device_time_total / 1e3 / calls] for e in top],
+    )
+
+
+def checked_scan(torch, label: str):
+    """(scan, record): ``ops.ssd_scan`` that holds every call bitwise
+    against the plain version on the same inputs, and the record of its
+    calls (count, share of chunk decays that are 0 per call, the first
+    call's inputs)."""
+    from repro_torch.kernels import ops, ref
+
+    record = dict(calls=0, zero=[], args=None)
+
+    def scan(states, decay, init=None):
+        got = ops.ssd_scan(states, decay, init)
+        want = ref.ssd_scan_ref(states, decay, init)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"{label}: ssd_scan call {record['calls']} differs "
+                                 "from the plain version")
+        if record["args"] is None:
+            record["args"] = [states.clone(), decay.clone(), init]
+        record["zero"].append(float((decay == 0).float().mean()))
+        record["calls"] += 1
+        return got
+
+    return scan, record
+
+
+def published_ssm_init(torch, params, gen):
+    """``params`` with every layer's ``a_log`` and ``dt_bias`` drawn as
+    Mamba2 draws them (arXiv 2405.21060; the reference ``Mamba2`` module):
+    A uniform in [1, 16], ``a_log = log A``; dt log-uniform in [1e-3, 1e-1]
+    (floor 1e-4), ``dt_bias`` its inverse softplus.  The port's init, like
+    JAX's, sets ``a_log`` to 1 and ``dt_bias`` to 0, which makes every
+    chunk decay of a 256-token chunk 0 in float32."""
+    mixer = params["dec"]["g0"]["blk0"]["mixer"]
+    shape, dev = mixer["a_log"].shape, mixer["a_log"].device
+    a = 1.0 + 15.0 * torch.rand(shape, generator=gen)
+    lo, hi = torch.log(torch.tensor(1e-3)), torch.log(torch.tensor(1e-1))
+    dt = torch.exp(lo + (hi - lo) * torch.rand(shape, generator=gen)).clamp(min=1e-4)
+    mixer = dict(mixer, a_log=torch.log(a).to(dev),
+                 dt_bias=(dt + torch.log(-torch.expm1(-dt))).to(dev))
+    blk = dict(params["dec"]["g0"]["blk0"], mixer=mixer)
+    return dict(params, dec=dict(params["dec"], g0=dict(params["dec"]["g0"], blk0=blk)))
+
+
+def ssm_phase(torch, device) -> dict:
+    """The third main path: Mamba2-370M at full width, random weights from
+    ``torch.Generator`` seed 0, 4 prompts of 2,048 tokens prefilled and
+    decoded 32 greedy steps with the ``ssd_scan`` kernel (counted: 48
+    launches, one a layer); again with the plain scan, which must give the
+    same prefill logits, states and tokens bit for bit; again with every
+    kernel call held bitwise against the plain version on its inputs.
+    Then one prefill with Mamba2's published ``a_log``/``dt_bias`` draws,
+    whose chunk decays are not 0, kernel against plain in the same way.
+    Times, profiles, peak memory, the share of chunk decays that are 0, and
+    how far decode step k is from a prefill of the prompt and k tokens."""
+    import numpy as np
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.model import decode_step, init_model, model_param_defs, prefill
+    from repro_torch.models.params import param_count
+
+    cfg = get_arch(SSM_ARCH)
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator().manual_seed(0), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT_LEN))
+                              .astype(np.int32)).to(device)
+
+    prefill(params, cfg, {"tokens": tokens})           # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    krun = ssm_generate(torch, cfg, params, tokens, ops.ssd_scan)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if launches["ssd_scan"] != cfg.num_layers or sum(launches.values()) != cfg.num_layers:
+        raise AssertionError(f"ssm: expected {cfg.num_layers} ssd_scan launches in one prefill "
+                             f"and {SSM_DECODE_STEPS} decode steps, got {launches}")
+    logits = krun["logits"]
+    if krun["tokens"].shape != (SSM_BATCH, SSM_DECODE_STEPS + 1) or not bool(
+            torch.isfinite(logits).all() & torch.isfinite(krun["prefill_logits"]).all()):
+        raise AssertionError("ssm: logits are not finite or tokens have the wrong shape")
+
+    prun = ssm_generate(torch, cfg, params, tokens, ref.ssd_scan_ref)
+    for name in ("prefill_logits", "conv", "ssd", "tokens"):
+        if not torch.equal(krun[name], prun[name]):
+            raise AssertionError(f"ssm: {name} of the kernel run differs from the plain run's")
+    decode_diff = float((krun["logits"] - prun["logits"]).abs().max())
+
+    # every kernel call of a third prefill against the plain version on its inputs
+    scan, shadow = checked_scan(torch, "ssm")
+    slogits, _ = prefill(params, cfg, {"tokens": tokens}, ssd_scan=scan)
+    if shadow["calls"] != cfg.num_layers or not torch.equal(slogits[:, -1], krun["prefill_logits"]):
+        raise AssertionError(f"ssm: the checked prefill made {shadow['calls']} scan calls "
+                             "or gave other logits")
+
+    # the same with decays that are not 0: the whole prefill, kernel against plain
+    pparams = published_ssm_init(torch, params, torch.Generator().manual_seed(1))
+    scan, pshadow = checked_scan(torch, "ssm published init")
+    plogits, pcaches = prefill(pparams, cfg, {"tokens": tokens}, ssd_scan=scan)
+    qlogits, qcaches = prefill(pparams, cfg, {"tokens": tokens}, ssd_scan=ref.ssd_scan_ref)
+    pstates, qstates = pcaches[0]["blk0"], qcaches[0]["blk0"]
+    if pshadow["calls"] != cfg.num_layers or not bool(torch.isfinite(plogits).all()):
+        raise AssertionError(f"ssm published init: {pshadow['calls']} scan calls "
+                             "or logits not finite")
+    for name, got, want in (("logits", plogits, qlogits), ("conv", pstates["conv"], qstates["conv"]),
+                            ("ssd", pstates["ssd"], qstates["ssd"])):
+        if not torch.equal(got, want):
+            raise AssertionError(f"ssm published init: {name} of the kernel prefill differs "
+                                 "from the plain prefill's")
+    pdecay = pshadow["args"][1]
+    published = dict(
+        bitwise_equal_to_plain=["logits", "conv", "ssd"], scan_calls_checked=pshadow["calls"],
+        zero_decay_share_mean=statistics.fmean(pshadow["zero"]),
+        layer0_decay_min=float(pdecay.min()), layer0_decay_max=float(pdecay.max()),
+        layer0_decay_median=float(pdecay.median()))
+    del pparams, plogits, qlogits, pcaches, qcaches, pstates, qstates, pshadow
+
+    def timed_prefill(scan):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill(params, cfg, {"tokens": tokens}, ssd_scan=scan)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    prefill_ms = {"kernel": [], "plain": []}
+    for _ in range(SSM_TIMED_PREFILLS):      # in turns: kernel, plain
+        prefill_ms["kernel"].append(timed_prefill(ops.ssd_scan))
+        prefill_ms["plain"].append(timed_prefill(ref.ssd_scan_ref))
+
+    consistency = {}
+    for k in SSM_CONSISTENCY_K:
+        longer = torch.cat([tokens, krun["tokens"][:, :k]], dim=1)
+        want, _ = prefill(params, cfg, {"tokens": longer})
+        got = logits[k - 1]
+        consistency[f"k{k}"] = dict(
+            max_abs_diff=float((got - want[:, -1]).abs().max()),
+            argmax_equal=f"{int((got.argmax(-1) == want[:, -1].argmax(-1)).sum())}/{SSM_BATCH}")
+
+    tok, pos, caches = krun["last"]
+    decode_med = statistics.median(krun["decode_ms"])
+    prefill_med = statistics.median(prefill_ms["kernel"])
+    prof_decode = profile_calls(torch, lambda: decode_step(params, cfg, tok, pos, caches), 3,
+                                decode_med, "ssd_scan")
+    prof_prefill = profile_calls(torch, lambda: prefill(params, cfg, {"tokens": tokens}), 1,
+                                 prefill_med, "ssd_scan")
+    emit("ssm", arch=cfg.name, params=param_count(model_param_defs(cfg)), init_s=init_s,
+         batch=SSM_BATCH, prompt_len=SSM_PROMPT_LEN, chunk=cfg.ssm_chunk,
+         decode_steps=SSM_DECODE_STEPS, launches=launches,
+         prefill_ms_first=krun["prefill_ms"], prefill_ms_kernel=prefill_ms["kernel"],
+         prefill_ms_plain=prefill_ms["plain"], prefill_ms_median=prefill_med,
+         prefill_tokens_per_s=SSM_BATCH * SSM_PROMPT_LEN / (prefill_med / 1e3),
+         decode_ms_per_step_median=decode_med,
+         decode_ms_per_step_median_plain=statistics.median(prun["decode_ms"]),
+         decode_tokens_per_s=SSM_BATCH / (decode_med / 1e3),
+         bitwise_equal_to_plain=["prefill_logits", "conv", "ssd", "tokens"],
+         decode_logits_max_abs_diff_vs_plain=decode_diff,
+         scan_calls_checked=shadow["calls"],
+         zero_decay_share_by_layer=shadow["zero"],
+         zero_decay_share_mean=statistics.fmean(shadow["zero"]),
+         published_init=published,
+         max_abs_logit=float(logits.abs().max()),
+         decode_vs_prefill=consistency, peak_memory_bytes=peak,
+         profile_decode_step=prof_decode, profile_prefill=prof_prefill,
+         tokens_row0=krun["tokens"][0].tolist())
+    return dict(launches=launches["ssd_scan"], scan_args=shadow["args"])
+
+
+def ssm_replay_phase(torch, device) -> None:
+    """The committed JAX fixture (Mamba2 smoke config, float32 and
+    bfloat16) through the port with the kernel, teacher-forced, held to
+    the CPU tests' tolerances."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.replay import (
+        SSM_TOL,
+        compare_ssm_case,
+        load_model_replay,
+        replay_ssm_case,
+        ssm_case_ok,
+    )
+
+    path = ROOT / "src" / "repro_torch" / "testdata" / "ssm_mamba2_smoke.npz"
+    cfg, tree, cases = load_model_replay(path)
+    for dtype, case in sorted(cases.items()):
+        ops.reset_launches()
+        res = compare_ssm_case(case, replay_ssm_case(cfg, tree, dtype, case, device),
+                               SSM_TOL[dtype])
+        torch.cuda.synchronize()
+        res["launches"] = ops.LAUNCHES["ssd_scan"]
+        if not ssm_case_ok(res, SSM_TOL[dtype]) or res["launches"] != cfg.num_layers:
+            raise AssertionError(f"ssm replay {dtype}: {res}")
+        emit("ssm_replay", case=dtype, tol=SSM_TOL[dtype], **res)
+
+
+def scan_work(states, decay, init) -> tuple[int, int, dict]:
+    """Bytes: every chunk state and decay read once, init where given, every
+    entering state and the final state written once; operations: a
+    multiply and an add an element a chunk."""
+    b, c, h, p, n = states.shape
+    lanes = b * h * p * n
+    nbytes = 4 * (2 * states.numel() + decay.numel() + lanes * (2 if init is not None else 1))
+    return nbytes, 2 * states.numel(), dict(B=b, C=c, H=h, P=p, N=n, init=init is not None)
+
+
+def scan_random(torch, gen, b, c, h, p, n, lo, hi, with_init):
+    dev = gen.device
+    states = torch.randn((b, c, h, p, n), generator=gen, device=dev)
+    decay = lo + (hi - lo) * torch.rand((b, c, h), generator=gen, device=dev)
+    init = torch.randn((b, h, p, n), generator=gen, device=dev) if with_init else None
+    return [states, decay, init]
+
+
+def scan_kernel_phase(torch, device, served, cycles_per_ms) -> dict:
+    """``ssd_scan`` bitwise against its plain version and timed (the L2
+    cache flushed before each run): (a) layer 0 of the served prefill, (b)
+    a long context of 128 chunks with decays in [0.95, 1), (c) decays
+    uniform in (0, 1) from a non-zero init at the served shape, and a
+    ragged shape of 128 long-memory chunks, (d)
+    ``benchmarks/kernels_bench.py``'s geometry."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    cases = {
+        "served_prefill_layer0": served,
+        "long_context_b1_c128": scan_random(torch, gen, 1, 128, 32, 64, 128, 0.95, 1.0, False),
+        "random_uniform_decay_init": scan_random(torch, gen, 4, 8, 32, 64, 128, 0.0, 1.0, True),
+        "random_ragged_long_memory_init": scan_random(torch, gen, 3, 128, 5, 7, 9, 0.95, 1.0, True),
+        "kernels_bench_b2_c16": scan_random(torch, gen, 2, 16, 32, 64, 128, 0.0, 1.0, False),
+    }
+    res = {}
+    for label, args in cases.items():
+        got = ops.ssd_scan(*args)
+        torch.cuda.synchronize()
+        want = ref.ssd_scan_ref(*args)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"ssd_scan {label}: differs from the plain version")
+
+        def fresh():
+            flush.zero_()
+            return args
+
+        nbytes, ops_n, info = scan_work(*args)
+        b_ms, b_by = bound(nbytes, ops_n)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        res[label] = dict(info, zero_decay_share=float((args[1] == 0).float().mean()),
+                          max_abs_err=err,
+                          ms=time_ms(torch, ops.ssd_scan, fresh, cycles_per_ms),
+                          plain_ms=time_ms(torch, ref.ssd_scan_ref, fresh, cycles_per_ms),
+                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops_n,
+                          library_ms=None)
+        del got, want
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -1076,7 +1569,7 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = build.build_all()
     emit("build", seconds=time.perf_counter() - t0, built=sorted(logs),
-         ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln]
+         ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                 for k, v in logs.items()})
 
     dense_cfg = SimConfig(
@@ -1101,12 +1594,17 @@ def main() -> None:
     pres = paged_kernel_phase(torch, device, serve.pop("attn_args"), cycles_per_ms)
     emit("kernels", kernel=PAGED, spin_cycles_per_ms=cycles_per_ms, **pres)
     serve_replay_phase(torch, device)
+    torch.cuda.empty_cache()
 
-    src = {
-        "flic_insert": "src/repro/kernels/flic_insert.py:122",
-        "flic_update": "src/repro/kernels/flic_update.py:77",
-        "flic_lookup": "src/repro/kernels/flic_lookup.py:61",
-    }
+    merge = merge_phase(torch, device, dense_cfg)
+    mres = merge_kernel_phase(torch, device, merge.pop("args"), cycles_per_ms)
+    emit("kernels", kernel="flic_merge", spin_cycles_per_ms=cycles_per_ms, **mres)
+
+    ssm = ssm_phase(torch, device)
+    sres = scan_kernel_phase(torch, device, ssm.pop("scan_args"), cycles_per_ms)
+    emit("kernels", kernel="ssd_scan", spin_cycles_per_ms=cycles_per_ms, **sres)
+    ssm_replay_phase(torch, device)
+
     # Headline case of each FLIC kernel: the first main-path case of the
     # kernels phase.  Launches: both main-path runs (dense, then city), each
     # counted from 0.  max_abs_err is 0: every FLIC kernel passed a bitwise
@@ -1118,7 +1616,7 @@ def main() -> None:
         lines.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": src[name],
+            "replaces": REPLACES[name],
             "launches": dense_launches[name] + city_launches[name],
             "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": None,
@@ -1126,12 +1624,24 @@ def main() -> None:
     head = pres["serve_step20_layer0"]
     lines.append({
         "name": PAGED, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{PAGED}.cu",
-        "replaces": "src/repro/kernels/paged_attention.py:74", "launches": serve["launches"],
+        "replaces": REPLACES[PAGED], "launches": serve["launches"],
         "max_abs_err": max([serve["max_abs_err"]]
                            + [v["max_abs_err"] for v in pres.values() if isinstance(v, dict)]),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
     })
+    # flic_merge: its entry's run on the dense cell's catch-up; ssd_scan: the
+    # Mamba2 run's launches (one prefill).  Error: the largest over all cases.
+    for name, launches, cases in (("flic_merge", merge["launches"], mres),
+                                  ("ssd_scan", ssm["launches"], sres)):
+        head = next(iter(cases.values()))
+        lines.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": max(v["max_abs_err"] for v in cases.values()),
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+        })
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

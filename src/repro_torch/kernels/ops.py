@@ -9,8 +9,8 @@ through the kernel or the call raises.
 
 The FLIC kernels update the cache tables IN PLACE (``flic_insert`` all
 eight, ``flic_update`` ``data_ts``/``last_use``/``data``) and return those
-same tensors; the plain versions return new ones.  ``paged_attention``
-allocates its output.
+same tensors; the plain versions return new ones.  ``flic_merge``,
+``paged_attention`` and ``ssd_scan`` allocate their outputs.
 
 ``LAUNCHES[name]`` counts the calls that launched kernel ``name``.
 """
@@ -24,7 +24,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES: dict[str, int] = {
-    "flic_insert": 0, "flic_update": 0, "flic_lookup": 0, "paged_attention": 0,
+    "flic_insert": 0, "flic_update": 0, "flic_lookup": 0, "flic_merge": 0,
+    "paged_attention": 0, "ssd_scan": 0,
 }
 
 
@@ -64,10 +65,11 @@ def _launcher(name: str, n_ptr: int, n_int: int):
 
 
 def _launch(name: str, n_int: int, device, tensors, ints) -> None:
+    """Launch kernel ``name``; a ``None`` among ``tensors`` is a null pointer."""
     fn = _launcher(name, len(tensors), n_int)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
+        err = fn(*[None if t is None else t.data_ptr() for t in tensors], *ints, stream)
     LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
@@ -166,6 +168,32 @@ def flic_lookup(tags, data_ts, valid, data, keys, sidx):
     return hit, ts, payload, way
 
 
+def flic_merge(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b):
+    """Newest-timestamp-wins merge of two aligned cache shards; see
+    ``ref.flic_merge_ref``.  ``(S, W)`` int32 tags and timestamps, bool
+    valid flags, ``(S, W, D)`` float32 payloads; any S.  Returns new
+    (tags, ts, valid, data)."""
+    if not _on_cuda(tags_a):
+        return ref.flic_merge_ref(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b)
+    s, w = tags_a.shape
+    d = data_a.shape[-1]
+    tab, pay = (s, w), (s, w, d)
+    _check(
+        tags_a.device,
+        tags_a=(tags_a, I32, tab), ts_a=(ts_a, I32, tab), valid_a=(valid_a, BOOL, tab),
+        data_a=(data_a, F32, pay), tags_b=(tags_b, I32, tab), ts_b=(ts_b, I32, tab),
+        valid_b=(valid_b, BOOL, tab), data_b=(data_b, F32, pay),
+    )
+    out = (torch.empty_like(tags_a), torch.empty_like(ts_a), torch.empty_like(valid_a),
+           torch.empty_like(data_a))
+    _launch(
+        "flic_merge", 3, tags_a.device,
+        (tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b, *out),
+        (s, w, d),
+    )
+    return out
+
+
 def paged_attention(q, k_pages, v_pages, page_table, lengths):
     """Decode attention through a page table; see ``ref.paged_attention_ref``.
 
@@ -204,3 +232,24 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
          int(k_pages.dtype == BF16)),
     )
     return out
+
+
+def ssd_scan(states, chunk_decay, init=None):
+    """The Mamba2 inter-chunk recurrence; see ``ref.ssd_scan_ref``.
+
+    ``states`` (B, C, H, P, N), ``chunk_decay`` (B, C, H) and ``init``
+    (B, H, P, N) or ``None`` (zeros); on CUDA all float32 and contiguous.
+    Returns (prev (B,C,H,P,N), final (B,H,P,N)) in float32.
+    """
+    if not _on_cuda(states):
+        return ref.ssd_scan_ref(states, chunk_decay, init)
+    b, c, h, p, n = states.shape
+    checks = dict(states=(states, F32, (b, c, h, p, n)), chunk_decay=(chunk_decay, F32, (b, c, h)))
+    if init is not None:
+        checks["init"] = (init, F32, (b, h, p, n))
+    _check(states.device, **checks)
+    prev = torch.empty_like(states)
+    final = torch.empty((b, h, p, n), dtype=F32, device=states.device)
+    _launch("ssd_scan", 4, states.device, (states, chunk_decay, init, prev, final),
+            (b, c, h, p * n))
+    return prev, final

@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the port's kernels.
 
 Ports of ``repro.kernels.ref`` (``flic_lookup_ref``, ``flic_update_ref``,
-``flic_insert_ref``, ``paged_attention_ref``) with the same contracts.  They
-are the CPU path of the ``kernels.ops`` wrappers, the
-``probe_backend="plain"`` path of the simulator and the
-``kernel_backend="plain"`` path of the serving engine, and what
-``chip_smoke.py`` holds each CUDA kernel against on the card.
+``flic_insert_ref``, ``flic_merge_ref``, ``paged_attention_ref``,
+``ssd_scan_ref``) with the same contracts.  They are the CPU path of the
+``kernels.ops`` wrappers, the ``probe_backend="plain"`` path of the
+simulator, the ``kernel_backend="plain"`` path of the serving engine, the
+Mamba2 model's scan when it is given ``ssd_scan=ref.ssd_scan_ref``, and
+what ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
 Differences in form from the JAX oracles, none in result:
 
@@ -177,6 +178,29 @@ def flic_insert_ref(tags, data_ts, ins_ts, origin, valid, dirty, last_use, data,
 
 
 # ---------------------------------------------------------------------------
+# flic_merge: soft-coherence merge of two aligned cache shards
+# ---------------------------------------------------------------------------
+
+def flic_merge_ref(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b):
+    """Line-wise newest-timestamp-wins merge (paper §I.A.a).
+
+    ``tags``/``ts`` ``(S, W)`` int32, ``valid`` ``(S, W)`` bool, ``data``
+    ``(S, W, D)`` float32, for replicas A and B.  B's line replaces A's
+    when B is valid and (A invalid or B strictly newer): on equal
+    timestamps A is kept, and two invalid lines give A's fields.  Returns
+    (tags, ts, valid, data) as new tensors; ``valid`` is ``valid_a |
+    valid_b``.
+    """
+    take_b = valid_b & (~valid_a | (ts_b > ts_a))
+    return (
+        torch.where(take_b, tags_b, tags_a),
+        torch.where(take_b, ts_b, ts_a),
+        valid_a | valid_b,
+        torch.where(take_b[..., None], data_b, data_a),
+    )
+
+
+# ---------------------------------------------------------------------------
 # paged_attention: decode attention through a FLIC page table
 # ---------------------------------------------------------------------------
 
@@ -199,3 +223,29 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths):
     s = torch.where(mask[:, None, None], s, -1e30)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhgk,bkhd->bhgd", w, v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan: Mamba2 inter-chunk state recurrence (exclusive scan)
+# ---------------------------------------------------------------------------
+
+def ssd_scan_ref(states, chunk_decay, init=None):
+    """The SSD chunk recurrence ``S_c = decay_c * S_{c-1} + states_c``.
+
+    ``states`` (B, C, H, P, N) chunk-local states, ``chunk_decay`` (B, C, H)
+    and ``init`` (B, H, P, N) (``None``: zeros), all read as float32.
+    Returns (prev (B,C,H,P,N), final (B,H,P,N)) in float32: ``prev[:, c]``
+    is the state entering chunk c (an exclusive scan), ``final`` the state
+    after the last chunk.  Each step rounds the product, then the sum (a
+    multiply, then an add; no fused multiply-add), as the CUDA kernel does.
+    """
+    b, c, h, p, n = states.shape
+    states = states.float()
+    decay = chunk_decay.float()
+    carry = (torch.zeros((b, h, p, n), dtype=torch.float32, device=states.device)
+             if init is None else init.float())
+    prev = torch.empty_like(states)
+    for i in range(c):
+        prev[:, i] = carry
+        carry = decay[:, i, :, None, None] * carry + states[:, i]
+    return prev, carry

@@ -1,8 +1,9 @@
-"""Core layers: RMSNorm, RoPE, SwiGLU MLP, embeddings.
+"""Core layers: RMSNorm, gated RMSNorm, RoPE, SwiGLU MLP, embeddings.
 
 Port of ``repro.models.layers``: plain functions over weight dicts, with
-JAX's casts (float32 inside ``rmsnorm`` and ``apply_rope``, back to the
-input dtype after).  JAX's activation-sharding hints have no counterpart.
+JAX's casts (float32 inside ``rmsnorm``, ``gated_rmsnorm`` and
+``apply_rope``; back to the input dtype after, the gate's for
+``gated_rmsnorm``).  JAX's activation-sharding hints have no counterpart.
 """
 from __future__ import annotations
 
@@ -29,6 +30,15 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = f32(x).square().mean(dim=-1, keepdim=True)
     y = f32(x) * torch.rsqrt(var + eps)
     return (y * f32(p["scale"])).to(x.dtype)
+
+
+def gated_rmsnorm(p: dict, x: torch.Tensor, gate: torch.Tensor, eps: float) -> torch.Tensor:
+    """Mamba2's norm: RMSNorm(x * silu(gate)), in float32, returned in
+    ``gate``'s dtype."""
+    x = f32(x) * F.silu(f32(gate))
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * f32(p["scale"])).to(gate.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,18 @@
 """Top-level model API: param defs, init, forward, prefill, decode.
 
-Port of ``repro.models.model`` for the stacks the port runs (dense GQA):
+Port of ``repro.models.model`` for the stacks the port runs (dense GQA
+and Mamba2 SSM):
 
   * ``model_param_defs(cfg)``        — ParamDef tree (single source of truth);
-  * ``init_model(cfg, generator, device)`` — random weights from a seed;
+  * ``init_model(cfg, generator, device)`` — random weights from a seed, on
+    the card unless ``device`` says otherwise;
   * ``forward(params, cfg, batch)``  — hidden states for train/prefill;
-  * ``prefill`` / ``decode_step``    — serving with contiguous per-layer caches.
+  * ``prefill`` / ``decode_step``    — serving with per-layer caches
+    (contiguous K/V for attention, conv window and SSD state for Mamba2).
+
+``ssd_scan`` is the Mamba2 chunk scan: by default ``kernels.ops.ssd_scan``
+(the CUDA kernel on the card), or ``kernels.ref.ssd_scan_ref``, its plain
+version.
 
 Batches: ``{"tokens": (B,S) int32}``.  The VLM patch prefix, the encoder
 and the training loss are later work (ROADMAP.md, Queue 1).
@@ -17,8 +24,11 @@ from typing import Any
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.simulator import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models.layers import embed_defs, embed_tokens, f32, rmsnorm, rmsnorm_defs
 from repro_torch.models.params import init_params
+from repro_torch.models.ssm import ScanFn
 from repro_torch.models.stack import apply_group, cache_specs, group_param_defs, plan_groups
 
 
@@ -37,11 +47,14 @@ def model_param_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def init_model(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
-    return init_params(model_param_defs(cfg), generator, device)
+def init_model(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
+    """Random weights of ``cfg`` from ``generator``'s seed, on ``device``
+    (``None``: the card; raises without one)."""
+    return init_params(model_param_defs(cfg), generator, resolve_device(device))
 
 
-def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
+def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train",
+            ssd_scan: ScanFn = ops.ssd_scan):
     """Returns (hidden, aux_loss, caches, text_offset). Caches only in prefill."""
     if cfg.family == "vlm" and "patches" in batch:
         raise NotImplementedError("the VLM patch prefix is not ported yet (ROADMAP.md, Queue 1)")
@@ -52,7 +65,8 @@ def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train"):
     caches = []
     for i, g in enumerate(dec_groups):
         x, c = apply_group(params["dec"][f"g{i}"], cfg, g, x, pos,
-                           "prefill" if mode == "prefill" else "train")
+                           "prefill" if mode == "prefill" else "train",
+                           ssd_scan=ssd_scan)
         if mode == "prefill":
             caches.append(c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -65,9 +79,9 @@ def _lm_head_weight(params, cfg: ModelConfig):
     return emb["tok"].T if cfg.tie_embeddings else emb["head"]
 
 
-def prefill(params, cfg: ModelConfig, batch: dict):
+def prefill(params, cfg: ModelConfig, batch: dict, ssd_scan: ScanFn = ops.ssd_scan):
     """Full-prompt forward returning per-group caches + last-position logits."""
-    hidden, _, caches, _ = forward(params, cfg, batch, "prefill")
+    hidden, _, caches, _ = forward(params, cfg, batch, "prefill", ssd_scan)
     logits = f32(hidden[:, -1:] @ _lm_head_weight(params, cfg))
     return logits, caches
 
@@ -77,8 +91,9 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: torch.Tensor
     """One token for every sequence in the batch.
 
     token: (B,1) int32; pos: (B,) current lengths; caches: stacked per group
-    (``decode_cache_specs``), updated IN PLACE.  Returns (logits (B,1,V)
-    float32, caches).
+    (``decode_cache_specs``).  Attention K/V caches are updated IN PLACE
+    and returned; Mamba2 states come back as new tensors.  Returns (logits
+    (B,1,V) float32, caches).
     """
     x = embed_tokens(params["embed"], token)
     _, dec_groups = plan_groups(cfg)

@@ -2,9 +2,10 @@
 
 Port of ``repro.models.stack``.  ``BlockDef``, ``Group`` and
 ``plan_groups`` are copied whole; the rest supports the blocks the port can
-run, attention (``mixer="attn"``) with a dense MLP (``ffn="mlp"``), and
-raises ``NotImplementedError`` for any other block.  JAX's ``lax.scan``
-over layers is a Python loop over the leading ``layers`` axis of each
+run, attention (``mixer="attn"``) with a dense MLP (``ffn="mlp"``) and a
+Mamba2 mixer alone (``mixer="ssm"``, ``ffn="none"``), and raises
+``NotImplementedError`` for any other block.  JAX's ``lax.scan`` over
+layers is a Python loop over the leading ``layers`` axis of each
 parameter.
 """
 from __future__ import annotations
@@ -15,7 +16,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
 from repro_torch.models.params import stack_defs
 
@@ -81,11 +84,14 @@ def plan_groups(cfg: ModelConfig) -> tuple[list[Group], list[Group]]:
     return [], [Group(cfg.num_layers, (BlockDef("attn", "mlp"),))]
 
 
+PORTED_BLOCKS = (("attn", "mlp"), ("ssm", "none"))
+
+
 def _supported(bd: BlockDef) -> None:
-    if bd.mixer != "attn" or bd.ffn != "mlp" or bd.cross:
+    if (bd.mixer, bd.ffn) not in PORTED_BLOCKS or bd.cross:
         raise NotImplementedError(
             f"block {bd} is not ported yet: the port runs attention + dense MLP "
-            "blocks (ROADMAP.md, Queue 1)"
+            "and Mamba2 blocks (ROADMAP.md, Queue 1)"
         )
 
 
@@ -95,6 +101,8 @@ def _supported(bd: BlockDef) -> None:
 
 def _block_defs(cfg: ModelConfig, bd: BlockDef, dtype) -> dict:
     _supported(bd)
+    if bd.mixer == "ssm":
+        return {"ln1": rmsnorm_defs(cfg.d_model, dtype), "mixer": ssm_mod.ssm_defs(cfg, dtype)}
     return {
         "ln1": rmsnorm_defs(cfg.d_model, dtype),
         "mixer": attn.gqa_defs(cfg, dtype),
@@ -112,20 +120,29 @@ def group_param_defs(cfg: ModelConfig, g: Group, dtype) -> dict:
 # Cache specs (contiguous decode caches)
 # ---------------------------------------------------------------------------
 
+def _block_cache_spec(cfg: ModelConfig, bd: BlockDef, steps: int, batch: int,
+                      seq: int) -> dict:
+    _supported(bd)
+    if bd.mixer == "ssm":
+        conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        return {
+            "conv": CacheSpec((steps, batch, cfg.ssm_conv - 1, conv_dim), torch.bfloat16),
+            "ssd": CacheSpec((steps, batch, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state),
+                             torch.float32),
+        }
+    shape = (steps, batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": CacheSpec(shape, torch.bfloat16), "v": CacheSpec(shape, torch.bfloat16)}
+
+
 def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> list[dict]:
-    """Per decoder group, ``{"blk<i>": {"k": CacheSpec, "v": CacheSpec}}``
-    stacked over steps: bfloat16 ``(steps, batch, seq, Hkv, D)``."""
+    """Per decoder group, ``{"blk<i>": {name: CacheSpec}}`` stacked over
+    steps: attention ``k``/``v`` bfloat16 ``(steps, batch, seq, Hkv, D)``;
+    Mamba2 ``conv`` bfloat16 ``(steps, batch, K-1, conv_dim)`` (the last
+    K-1 pre-activation conv inputs) and ``ssd`` float32 ``(steps, batch, H,
+    P, N)``."""
     _, dec = plan_groups(cfg)
-    out = []
-    for g in dec:
-        specs = {}
-        for i, bd in enumerate(g.blocks):
-            _supported(bd)
-            shape = (g.steps, batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
-            specs[f"blk{i}"] = {"k": CacheSpec(shape, torch.bfloat16),
-                                "v": CacheSpec(shape, torch.bfloat16)}
-        out.append(specs)
-    return out
+    return [{f"blk{i}": _block_cache_spec(cfg, bd, g.steps, batch, seq)
+             for i, bd in enumerate(g.blocks)} for g in dec]
 
 
 # ---------------------------------------------------------------------------
@@ -133,11 +150,21 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 def _apply_block(bp: dict, cfg: ModelConfig, bd: BlockDef, x, positions, mode: str,
-                 cache: Optional[dict], kv_len):
+                 cache: Optional[dict], kv_len, ssd_scan: ssm_mod.ScanFn = ops.ssd_scan):
     """One sublayer. Returns (x, new_cache)."""
     _supported(bd)
     new_cache: dict[str, Any] = {}
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    if bd.mixer == "ssm":
+        if mode == "decode":
+            y, st = ssm_mod.ssm_decode(
+                bp["mixer"], cfg, h, ssm_mod.SSMState(conv=cache["conv"], ssd=cache["ssd"]))
+            new_cache = {"conv": st.conv, "ssd": st.ssd}
+        else:
+            y, st = ssm_mod.ssm_forward(bp["mixer"], cfg, h, ssd_scan=ssd_scan)
+            if mode == "prefill":
+                new_cache = {"conv": st.conv.to(torch.bfloat16), "ssd": st.ssd}
+        return x + y, new_cache
     if mode == "decode":
         y, k_cache, v_cache = attn.gqa_decode(
             bp["mixer"], cfg, h, kv_len, cache["k"], cache["v"])
@@ -158,11 +185,14 @@ def _index(tree, i: int):
 
 
 def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
-                cache=None, kv_len=None):
+                cache=None, kv_len=None, ssd_scan: ssm_mod.ScanFn = ops.ssd_scan):
     """Run a group's steps in order.  Returns (x, caches stacked over steps).
 
-    Prefill stacks each step's fresh K/V; decode writes into ``cache`` in
-    place (each step gets a view of its layer) and returns it.
+    Prefill stacks each step's fresh caches.  Decode of attention blocks
+    writes K/V into ``cache`` in place (each step gets a view of its layer)
+    and returns it; decode of Mamba2 blocks stacks each step's new states
+    (new tensors: a float32 model's bfloat16 conv window turns float32, as
+    in JAX).
     """
     per_step = []
     for s in range(g.steps):
@@ -172,12 +202,13 @@ def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
         for i, bd in enumerate(g.blocks):
             c_in = None if step_cache is None else step_cache[f"blk{i}"]
             x, new_caches[f"blk{i}"] = _apply_block(
-                step_params[f"blk{i}"], cfg, bd, x, positions, mode, c_in, kv_len)
+                step_params[f"blk{i}"], cfg, bd, x, positions, mode, c_in, kv_len,
+                ssd_scan)
         per_step.append(new_caches)
-    if mode == "decode":
+    if mode == "train":
+        return x, None
+    if mode == "decode" and all(bd.mixer == "attn" for bd in g.blocks):
         return x, cache
-    if mode == "prefill":
-        return x, {blk: {name: torch.stack([c[blk][name] for c in per_step])
-                         for name in per_step[0][blk]}
-                   for blk in per_step[0]}
-    return x, None
+    return x, {blk: {name: torch.stack([c[blk][name] for c in per_step])
+                     for name in per_step[0][blk]}
+               for blk in per_step[0]}

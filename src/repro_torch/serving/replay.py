@@ -12,7 +12,8 @@ A file holds, as one compressed ``.npz``:
   decode step's logits of the request), ``<c>.reused`` (R,) and
   ``<c>.stats`` (``FlicPageManager.stats`` as JSON).
 
-``tests/torch_parity.py`` writes the file from the JAX package;
+The layout is ``models/replay.py``'s.  ``tests/torch_parity.py`` writes
+the file from the JAX package with ``models.replay.save_model_replay``;
 ``chip_smoke.py`` replays it on the card and the CPU tests on the CPU.  A
 replay is teacher-forced: the port's engine is fed JAX's tokens, so its
 logits can be compared step by step even where a near-tie would let the
@@ -20,7 +21,6 @@ two frameworks' greedy choices part.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 
 import numpy as np
@@ -28,39 +28,16 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.params import params_from_numpy
+from repro_torch.models.replay import load_model_replay
 from repro_torch.serving.engine import TeacherForcedEngine
 
 CASES = ("main", "tight")
 
 
-def save_serve_replay(path, cfg: ModelConfig, params: dict, cases: dict[str, dict]) -> None:
-    """``params``: ``{path: numpy array}``; ``cases``: ``{name: {field: array}}``."""
-    arrays = {"config": np.asarray(json.dumps(dataclasses.asdict(cfg), sort_keys=True))}
-    for k, a in params.items():
-        a = np.asarray(a)
-        arrays[f"param.{k}"] = a.view(np.uint16) if a.dtype.name == "bfloat16" else a
-    for name, fields in cases.items():
-        arrays.update({f"{name}.{k}": np.asarray(v) for k, v in fields.items()})
-    np.savez_compressed(path, **arrays)
-
-
 def load_serve_replay(path, device) -> tuple[ModelConfig, dict, dict[str, dict]]:
     """(config, the port's parameters on ``device``, ``{case: fields}``);
     ``stats`` comes back as a dict."""
-    with np.load(path) as z:
-        arrays = {k: z[k] for k in z.files}
-    cfg = ModelConfig(**json.loads(str(arrays.pop("config"))))
-    tree: dict = {}
-    for k in [k for k in arrays if k.startswith("param.")]:
-        node = tree
-        *parents, leaf = k[len("param."):].split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = arrays.pop(k)
-    cases: dict[str, dict] = {}
-    for k, v in arrays.items():
-        name, field = k.split(".", 1)
-        cases.setdefault(name, {})[field] = v
+    cfg, tree, cases = load_model_replay(path)
     for fields in cases.values():
         fields["stats"] = json.loads(str(fields["stats"]))
     return cfg, params_from_numpy(tree, cfg, device), cases

@@ -1,7 +1,10 @@
 """Package rules of the port: no JAX, nothing of the JAX package, and a
 counted wrapper for every CUDA kernel."""
 import ast
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 from repro_torch.kernels import build, ops
@@ -27,9 +30,26 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert not bad, bad
 
 
+def test_importing_the_port_loads_no_jax():
+    """Every module of the port imported in a fresh interpreter: neither
+    JAX nor the JAX package is loaded."""
+    modules = sorted(
+        ".".join(f.relative_to(ROOT / "src").with_suffix("").parts)
+        for f in (ROOT / "src" / "repro_torch").rglob("*.py") if f.name != "__init__.py")
+    assert "repro_torch.models.ssm" in modules and "repro_torch.models.replay" in modules
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_every_cuda_kernel_has_a_counted_wrapper():
     sources = build.sources()
-    assert set(sources) == {"flic_insert", "flic_update", "flic_lookup", "paged_attention"}
+    assert set(sources) == {"flic_insert", "flic_update", "flic_lookup", "flic_merge",
+                            "paged_attention", "ssd_scan"}
     assert set(ops.LAUNCHES) == set(sources)
     for name, src in sources.items():
         text = src.read_text()

@@ -240,9 +240,11 @@ def test_prefill_and_decode_step_match_jax():
 def test_blocks_the_port_cannot_run_raise():
     _, tcfg = _smoke()
     with pytest.raises(NotImplementedError):
-        _block_defs(tcfg, BlockDef("ssm", "none"), torch.float32)
+        _block_defs(tcfg, BlockDef("ssm", "mlp"), torch.float32)
     with pytest.raises(NotImplementedError):
         _block_defs(tcfg, BlockDef("attn", "moe"), torch.float32)
+    with pytest.raises(NotImplementedError):
+        _block_defs(tcfg, BlockDef("mla", "mlp"), torch.float32)
     cache = torch.zeros((1, 4, 1, 16), dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="int8"):
         tattn.gqa_decode({}, tcfg, torch.zeros(1, 1, 64), torch.zeros(1, dtype=torch.int32),

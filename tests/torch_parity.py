@@ -12,7 +12,8 @@ Not a test module: it imports both packages, which only tests may do.
 * ``jax_series``/``jax_state_arrays`` flatten JAX results to numpy.
 * ``replay_fixture_arrays``/``write_replay_fixture`` build the committed
   replay files that ``chip_smoke.py`` runs on the card;
-  ``serve_fixture``/``write_serve_fixture`` the serving one.
+  ``serve_fixture``/``write_serve_fixture`` the serving one;
+  ``ssm_fixture``/``write_ssm_fixture`` the Mamba2 one (``jax_ssm_run``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import json
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -323,10 +325,73 @@ def serve_fixture() -> tuple:
 
 def write_serve_fixture(path: str = SERVE_FIXTURE) -> str:
     from repro_torch.config import ModelConfig
-    from repro_torch.serving.replay import save_serve_replay
+    from repro_torch.models.replay import save_model_replay
 
     jcfg, flat, cases = serve_fixture()
-    save_serve_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), flat, cases)
+    save_model_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), flat, cases)
+    return path
+
+
+SSM_FIXTURE = os.path.join(FIXTURE_DIR, "ssm_mamba2_smoke.npz")
+SSM_BATCH, SSM_PROMPT, SSM_STEPS = 2, 40, 6
+
+
+def jax_ssm_run(jcfg, jparams, tokens: np.ndarray, steps: int) -> dict:
+    """JAX's ``prefill`` of ``tokens``, then ``steps`` greedy
+    ``decode_step``s: one case of ``repro_torch.models.replay``'s format."""
+    from repro.models.model import decode_step, prefill
+
+    logits, caches = prefill(jparams, jcfg, {"tokens": jnp.asarray(tokens)})
+    blk = caches[0]["blk0"]
+    case = {"tokens": tokens, "prefill_logits": np.asarray(logits[:, 0], np.float32),
+            "conv": np.asarray(blk["conv"]).view(np.uint16),
+            "ssd": np.asarray(blk["ssd"][-1], np.float32)}
+    tok = tokens[:, -1:]
+    pos = np.full((tokens.shape[0],), tokens.shape[1], np.int32)
+    fed, out = [], []
+    for _ in range(steps):
+        fed.append(tok[:, 0])
+        logits, caches = decode_step(jparams, jcfg, jnp.asarray(tok), jnp.asarray(pos), caches)
+        out.append(np.asarray(logits[:, 0], np.float32))
+        tok = out[-1].argmax(-1).astype(np.int32)[:, None]
+        pos = pos + 1
+    case["fed"] = np.stack(fed).astype(np.int32)
+    case["logits"] = np.stack(out)
+    return case
+
+
+@functools.cache
+def ssm_fixture() -> tuple:
+    """(JAX config, flat numpy params, cases) of the committed Mamba2
+    fixture: the smoke config in bfloat16, weights from ``PRNGKey(0)``, 2
+    prompts of 40 tokens (two chunks of 16 and a ragged 8), 6 greedy decode
+    steps; case ``bfloat16`` runs the weights as they are, case ``float32``
+    the float32 model on the same weights widened (exactly).  Cached: the
+    returned arrays are shared and must not be changed."""
+    from repro.config import get_smoke_arch
+    from repro.models import init_model
+
+    jcfg = get_smoke_arch("mamba2_370m")
+    jparams = init_model(jax.random.PRNGKey(0), jcfg)
+    flat = {"/".join(k.key for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    tokens = np.random.default_rng(0).integers(
+        0, jcfg.vocab_size, (SSM_BATCH, SSM_PROMPT)).astype(np.int32)
+    wide = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
+    cases = {
+        "bfloat16": jax_ssm_run(jcfg, jparams, tokens, SSM_STEPS),
+        "float32": jax_ssm_run(dataclasses.replace(jcfg, dtype="float32"), wide, tokens,
+                               SSM_STEPS),
+    }
+    return jcfg, flat, cases
+
+
+def write_ssm_fixture(path: str = SSM_FIXTURE) -> str:
+    from repro_torch.config import ModelConfig
+    from repro_torch.models.replay import save_model_replay
+
+    jcfg, flat, cases = ssm_fixture()
+    save_model_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), flat, cases)
     return path
 
 
@@ -334,3 +399,4 @@ if __name__ == "__main__":
     for name in FIXTURE_CASES:
         print(write_replay_fixture(name))
     print(write_serve_fixture())
+    print(write_ssm_fixture())
