@@ -11,9 +11,11 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 2. ``build``: the build time of the kernels and ``ptxas``'s resource lines;
 3. ``kernels``: each kernel against its plain PyTorch version (bitwise),
    first on the inputs the main path gives it (copied from one tick of the
-   dense and the city cell), then on arbitrary states at the same shapes;
-   with the median time of 20 runs of each and the card's time bound for
-   the bytes that those inputs need;
+   dense and the city cell), then on arbitrary states at the same shapes
+   (for ``flic_update`` also a hot-key state, where ~R rows race for one
+   line, and a table too large for the kernel's shared memory, swept in
+   ranges of sets); with the median time of 20 runs of each and the card's
+   time bound for the bytes that those inputs need;
 4. ``replay``: the committed JAX replays (``src/repro_torch/testdata``)
    through ``run_sim`` with the kernels; the ``TickMetrics`` series must
    equal JAX's bitwise;
@@ -34,8 +36,13 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    profile of one decode step, peak memory and the page manager's stats;
 8. ``kernels`` (``paged_attention``): the kernel against its plain version
    on the serve run's inputs (decode step 20, layer 0), on a long context
-   (16 sequences of up to 32,768 positions) and on edge cases, with times,
-   bounds and a ``scaled_dot_product_attention`` yardstick;
+   (16 sequences of up to 32,768 positions), on edge cases and on lengths
+   placed against the kernel's split plan (on and inside split boundaries,
+   0, fewer live splits; a float32 long context), on shapes that reach the
+   kernel's other instances, with times, bounds and a
+   ``scaled_dot_product_attention`` yardstick; two calls give the same
+   bits, and a bad page id in the first or the last live slot gives NaN
+   for its sequence alone;
 9. ``serve_replay``: the committed JAX serving fixture through the port
    with the kernel, teacher-forced, including a tight pool that evicts,
    spills and fetches pages back; the page manager's stats must equal
@@ -392,8 +399,59 @@ def random_cases(torch, device) -> dict:
 
     tags, data_ts, _, _, valid, _, _, data = random_tables(torch, gen, 1_000, s, w, d, pool)
     lookup = {f"random_q{q}": [tags, data_ts, valid, data, *queries(q)] for q in (67, 1_000)}
-    return {"flic_insert": {"random": insert}, "flic_update": {"random": update},
+    return {"flic_insert": {"random": insert},
+            "flic_update": {"random": update, "hot_key": hot_key_update(torch, gen, pool),
+                            "large_table_s8192": large_table_update(torch, gen)},
             "flic_lookup": lookup}
+
+
+def hot_key_update(torch, gen, pool):
+    """The dense shape (N=R=1,000, S=50, W=4, D=8) where every row carries
+    one of 2 keys and 90% of the nodes hold both, older than the rows: one
+    line of such a node has ~R/2 qualifying rows, all racing for its winner."""
+    from repro_torch.core.cache_state import set_index
+
+    dev = gen.device
+    n = r = 1_000
+    s, w, d = 50, 4, 8
+    tags, data_ts, _, _, valid, _, last_use, data = random_tables(torch, gen, n, s, w, d, pool)
+    hot = pool[:2]
+    hot_sets = set_index(hot, s)
+    holds = torch.rand(n, generator=gen, device=dev) < 0.9
+    for way, (key, st) in enumerate(zip(hot, hot_sets)):
+        tags[holds, st, way] = key
+        valid[holds, st, way] = True
+        data_ts[holds, st, way] = torch.randint(-1, 5, (int(holds.sum()),), generator=gen,
+                                                device=dev, dtype=torch.int32)
+    keys = hot[torch.randint(0, 2, (r,), generator=gen, device=dev)]
+    return [tags, data_ts, valid, last_use, data, keys, set_index(keys, s).to(torch.int32),
+            torch.randint(0, 100, (r,), generator=gen, device=dev, dtype=torch.int32),
+            torch.rand((r, d), generator=gen, device=dev),
+            torch.rand((n, r), generator=gen, device=dev) < 0.9, 30]
+
+
+def large_table_update(torch, gen):
+    """N=8 tables of S=8,192 sets x 4 ways (32,768 lines, beyond the
+    kernel's shared budget, so it sweeps them in ranges of sets), R=1,000
+    rows of 512 keys; half the (node, row) pairs find their key in the
+    row's set (at way row % 4)."""
+    from repro_torch.core.cache_state import set_index
+
+    dev = gen.device
+    n, r, s, w, d = 8, 1_000, 8_192, 4, 8
+    pool = torch.randint(-2**31, 2**31 - 1, (512,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    tags, data_ts, _, _, valid, _, last_use, data = random_tables(torch, gen, n, s, w, d, pool)
+    keys = pool[torch.randint(0, pool.numel(), (r,), generator=gen, device=dev)]
+    sidx = set_index(keys, s)
+    plant = torch.rand((n, r), generator=gen, device=dev) < 0.5
+    node, row = plant.nonzero(as_tuple=True)
+    tags[node, sidx[row], row % w] = keys[row]
+    valid[node, sidx[row], row % w] = True
+    return [tags, data_ts, valid, last_use, data, keys, sidx.to(torch.int32),
+            torch.randint(-1, 25, (r,), generator=gen, device=dev, dtype=torch.int32),
+            torch.rand((r, d), generator=gen, device=dev),
+            torch.rand((n, r), generator=gen, device=dev) < 0.7, 30]
 
 
 def kernel_phase(torch, device, dense_cfg, city_cfg, cycles_per_ms) -> dict:
@@ -1054,30 +1112,130 @@ def edge_cases(torch, device, gen) -> dict:
     return cases
 
 
+def split_cases(torch, device, gen) -> dict:
+    """The edge cases' shapes (B=6, Hkv=8, G=4, D=128, page 16, 35 page
+    slots, a 280-page pool) with lengths set by the kernel's split plan on
+    this card: one ending on a split boundary, one inside a split, one that
+    fits in the first split (fewer live splits than the others), 0 (every
+    split walks all its slots), a full table and 1; the three dtype pairs."""
+    from repro_torch.kernels import ops
+
+    b, hkv, g, d, page, max_pages, n_pool = 6, 8, 4, 128, 16, 35, 280
+    splits, per = ops.paged_split_plan(b, hkv, max_pages, ops.sm_count(device))
+    span = per * page
+    lengths = torch.tensor([2 * span, 2 * span + 5, span - 3, 0, max_pages * page, 1],
+                           dtype=torch.int32, device=device)
+    table = torch.randperm(n_pool, generator=gen, device=device)[: b * max_pages]
+    table = table.to(torch.int32).reshape(b, max_pages)
+    live = ((lengths.long() + page - 1) // page).clamp(min=1)
+    live[lengths <= 0] = max_pages
+    table[torch.arange(max_pages, device=device)[None] >= live[:, None]] = 0
+    cases = {}
+    for qdt, kvdt in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+                      (torch.float32, torch.float32)):
+        q = torch.randn((b, hkv, g, d), generator=gen, device=device).to(qdt)
+        kp = torch.randn((n_pool, page, hkv, d), generator=gen, device=device).to(kvdt)
+        vp = torch.randn((n_pool, page, hkv, d), generator=gen, device=device).to(kvdt)
+        cases[f"splits{splits}x{per}_q{str(qdt)[6:]}_kv{str(kvdt)[6:]}"] = [
+            q, kp, vp, table.clone(), lengths]
+    return cases
+
+
+def shape_cases(torch, device, gen) -> dict:
+    """Small random states that reach every instance of the kernel beyond
+    the served one: bfloat16 at D=256 (the wider mma instance), D=96 (12
+    chunks a row: no power of two) with G=5 (two head groups), D=40 (no
+    multiple of 16: the bfloat16 CUDA-core instance), D=16 and page 8 (the
+    smoke model's); float32 q over bfloat16 at D=80; float32 at D=64 with
+    G=8 and page 32.  Random lengths with a 0, page ids anywhere in the
+    pool."""
+    cases = {}
+    for b, hkv, g, d, page, max_pages, n_pool, qdt, kvdt in (
+            (3, 2, 4, 256, 16, 40, 200, torch.bfloat16, torch.bfloat16),
+            (3, 2, 5, 96, 16, 40, 200, torch.bfloat16, torch.bfloat16),
+            (3, 2, 3, 40, 16, 40, 200, torch.bfloat16, torch.bfloat16),
+            (2, 1, 4, 16, 8, 5, 20, torch.bfloat16, torch.bfloat16),
+            (3, 2, 4, 80, 8, 20, 100, torch.float32, torch.bfloat16),
+            (3, 2, 8, 64, 32, 20, 100, torch.float32, torch.float32)):
+        q = torch.randn((b, hkv, g, d), generator=gen, device=device).to(qdt)
+        kp = torch.randn((n_pool, page, hkv, d), generator=gen, device=device).to(kvdt)
+        vp = torch.randn((n_pool, page, hkv, d), generator=gen, device=device).to(kvdt)
+        table = torch.randint(0, n_pool, (b, max_pages), generator=gen, device=device,
+                              dtype=torch.int32)
+        lengths = torch.randint(0, max_pages * page + 1, (b,), generator=gen, device=device,
+                                dtype=torch.int32)
+        lengths[0] = 0
+        cases[f"shape_g{g}_d{d}_page{page}_q{str(qdt)[6:]}_kv{str(kvdt)[6:]}"] = [
+            q, kp, vp, table, lengths]
+    return cases
+
+
+def long_context_f32_case(torch, device, gen):
+    """float32 q and K/V at the long context's shapes (B=16, Hkv=8, 2,048
+    page slots: the same split plan) over a 4,096-page pool; random lengths
+    with a 0 and one ending on a split boundary."""
+    from repro_torch.kernels import ops
+
+    b, hkv, g, d, page, max_pages, n_pool = 16, 8, 4, 128, 16, 2048, 4096
+    _, per = ops.paged_split_plan(b, hkv, max_pages, ops.sm_count(device))
+    q = torch.randn((b, hkv, g, d), generator=gen, device=device)
+    kp = torch.randn((n_pool, page, hkv, d), generator=gen, device=device)
+    vp = torch.randn((n_pool, page, hkv, d), generator=gen, device=device)
+    lengths = torch.randint(1, max_pages * page + 1, (b,), generator=gen, device=device,
+                            dtype=torch.int32)
+    lengths[0], lengths[1] = 0, 2 * per * page
+    table = torch.randint(0, n_pool, (b, max_pages), generator=gen, device=device,
+                          dtype=torch.int32)
+    return [q, kp, vp, table, lengths]
+
+
 def paged_kernel_phase(torch, device, attn_args, cycles_per_ms) -> dict:
     """``paged_attention`` against its plain version: (a) the inputs of
     decode step ``CAPTURE_STEP``'s layer 0 in the serve run, (b) a long
-    context, (c) edge cases; and a page id outside the pool gives NaN."""
+    context, (c) edge cases, split cases, the kernel's other instances and a
+    float32 long context; two
+    calls on the same inputs give the same bits; a page id outside the pool,
+    in the first or in the last live page slot of sequence 0, gives NaN for
+    sequence 0 alone."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)   # > the 50 MB L2
+
+    def same_bits(args, label):
+        a, b = ops.paged_attention(*args), ops.paged_attention(*args)
+        if not torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32)):
+            raise AssertionError(f"paged_attention {label}: two calls gave different bits")
+
     res = {"serve_step20_layer0": paged_case(torch, attn_args, cycles_per_ms, flush, True)}
+    same_bits(attn_args, "serve_step20_layer0")
     long = long_context_case(torch, device, gen)
     res["long_context_b16_32k"] = paged_case(torch, long, cycles_per_ms, flush, True)
+    same_bits(long, "long_context_b16_32k")
     del long
     torch.cuda.empty_cache()
-    for label, args in edge_cases(torch, device, gen).items():
+    cases = {**edge_cases(torch, device, gen), **split_cases(torch, device, gen),
+             **shape_cases(torch, device, gen),
+             "long_context_f32_b16": long_context_f32_case(torch, device, gen)}
+    for label, args in cases.items():
         got = ops.paged_attention(*args)
         res[label] = dict(max_abs_err=paged_check(torch, got, ref.paged_attention_ref(*args), args))
+    del cases
+    torch.cuda.empty_cache()
     q, kp, vp, table, lengths = attn_args
-    bad = table.clone()
-    bad[0, 0] = kp.shape[0]
-    out = ops.paged_attention(q, kp, vp, bad, lengths)
-    if not (bool(out[0].isnan().all()) and not bool(out[1:].isnan().any())):
-        raise AssertionError("paged_attention: a page id outside the pool must give NaN for its row alone")
+    page = kp.shape[1]
+    last = (int(lengths[0]) + page - 1) // page - 1
+    for slot in (0, last):
+        bad = table.clone()
+        bad[0, slot] = kp.shape[0]
+        out = ops.paged_attention(q, kp, vp, bad, lengths)
+        if not (bool(out[0].isnan().all()) and not bool(out[1:].isnan().any())):
+            raise AssertionError(f"paged_attention: a page id outside the pool in slot {slot} "
+                                 "must give NaN for its row alone")
     res["bad_page_id_gives_nan"] = True
+    res["bad_page_id_slots"] = [0, last]
     return res
 
 

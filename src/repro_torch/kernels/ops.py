@@ -130,12 +130,10 @@ def flic_update(tags, data_ts, valid, last_use, data, keys, sidx, row_ts,
         keys=(keys, I32, (r,)), sidx=(sidx, I32, (r,)), row_ts=(row_ts, I32, (r,)),
         row_data=(row_data, F32, (r, d)), live=(live, BOOL, (n, r)),
     )
-    winr = torch.full(tab, -1, dtype=I32, device=tags.device)
-    counts = torch.zeros((n,), dtype=I32, device=tags.device)
+    counts = torch.empty((n,), dtype=I32, device=tags.device)
     _launch(
         "flic_update", 6, tags.device,
-        (tags, data_ts, valid, last_use, data, keys, sidx, row_ts, row_data,
-         live, winr, counts),
+        (tags, data_ts, valid, last_use, data, keys, sidx, row_ts, row_data, live, counts),
         (int(now), n, r, s, w, d),
     )
     return data_ts, last_use, data, counts
@@ -194,6 +192,51 @@ def flic_merge(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b):
     return out
 
 
+# The paged_attention kernel's split over the KV length: the blocks per SM a
+# plan aims for, and the fewest and the most page slots of one split (a
+# block stages its page ids in shared memory).
+SPLIT_BLOCKS_PER_SM = 16
+SPLIT_MIN_PAGES = 4
+SPLIT_MAX_PAGES = 512
+
+
+def paged_split_plan(b: int, hkv: int, max_pages: int, n_sms: int) -> tuple[int, int]:
+    """(splits, pages_per_split) of ``paged_attention`` over the KV length.
+
+    From the shapes alone, never ``lengths`` (reading them would make the
+    host wait for the card): enough splits that the B * Hkv (sequence, KV
+    head) pairs make about ``SPLIT_BLOCKS_PER_SM`` blocks per SM, with
+    ``SPLIT_MIN_PAGES`` to ``SPLIT_MAX_PAGES`` page slots a split (fewer
+    only where the table has fewer).  Split ``s`` takes slots
+    ``[s * pages_per_split, (s + 1) * pages_per_split)``; the ranges cover
+    the ``max_pages`` slots once and none is empty.
+    """
+    want = -(-SPLIT_BLOCKS_PER_SM * n_sms // max(1, b * hkv))
+    per = max(-(-max_pages // want), min(SPLIT_MIN_PAGES, max_pages))
+    per = min(per, SPLIT_MAX_PAGES)
+    return -(-max_pages // per), per
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_ARRIVALS: dict[int, torch.Tensor] = {}
+
+
+def _arrivals(device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters of the ``paged_attention``
+    kernel on ``device``, zero between calls (each call leaves them at 0);
+    allocated once and grown when a call needs more."""
+    index = device.index or 0
+    buf = _ARRIVALS.get(index)
+    if buf is None or buf.numel() < n:
+        buf = _ARRIVALS[index] = torch.zeros(max(n, 4096), dtype=I32, device=device)
+    return buf
+
+
 def paged_attention(q, k_pages, v_pages, page_table, lengths):
     """Decode attention through a page table; see ``ref.paged_attention_ref``.
 
@@ -201,9 +244,14 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
     bfloat16 or float32 (K and V alike; on CUDA not a bfloat16 ``q`` over
     float32 pages), ``page_table`` (B, max_pages) and ``lengths`` (B,)
     int32.  Returns (B, Hkv, G, D) in ``q``'s dtype.
-    On CUDA, D * (bytes of a K/V value) must be a multiple of 16 (the kernel
-    reads K/V in 16-byte loads), every page id must lie in [0, P) (a
-    (sequence, head) with one outside gets NaN), and B <= 65,535.
+    On CUDA, D * (bytes of a K/V value) must be a multiple of 16 and at most
+    512 (the kernel reads K/V in 16-byte chunks, a lane's chunk of a row),
+    every page id must lie in [0, P) (a (sequence, head) with one outside
+    gets NaN), and B <= 65,535.  The kernel splits each sequence's page
+    slots over blocks (``paged_split_plan``); the last split of a (sequence,
+    head) to finish merges the splits' partial softmax states in split
+    order, counted in on counters that this module keeps per device, so two
+    calls on one device must not run at once on two streams.
     """
     if not _on_cuda(q):
         return ref.paged_attention_ref(q, k_pages, v_pages, page_table, lengths)
@@ -220,15 +268,24 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
         v_pages=(v_pages, k_pages.dtype, kv), page_table=(page_table, I32, (b, max_pages)),
         lengths=(lengths, I32, (b,)),
     )
-    if (d * k_pages.element_size()) % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("K/V rows must be 16-byte multiples on 16-byte aligned storage")
+    row_bytes = d * k_pages.element_size()
+    if row_bytes % 16 or row_bytes > 512 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("K/V rows must be 16-byte multiples of at most 512 bytes on 16-byte "
+                         "aligned storage")
     if b > 65_535:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit of 65,535")
+    if max_pages == 0:
+        raise ValueError("page_table has no page slots")
     out = torch.empty_like(q)
+    splits, per = paged_split_plan(b, hkv, max_pages, sm_count(q.device))
+    part = arrivals = None
+    if splits > 1:
+        part = torch.empty(b * hkv * splits * g * (d + 2), dtype=F32, device=q.device)
+        arrivals = _arrivals(q.device, b * hkv * -(-g // 4))
     _launch(
-        "paged_attention", 9, q.device,
-        (q, k_pages, v_pages, page_table, lengths, out),
-        (b, hkv, g, d, page, n_pool, max_pages, int(q.dtype == BF16),
+        "paged_attention", 11, q.device,
+        (q, k_pages, v_pages, page_table, lengths, out, part, arrivals),
+        (b, hkv, g, d, page, n_pool, max_pages, splits, per, int(q.dtype == BF16),
          int(k_pages.dtype == BF16)),
     )
     return out

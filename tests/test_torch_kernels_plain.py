@@ -55,13 +55,35 @@ def test_lookup_plain_matches_jax_oracle(seed, q):
            ("hit", "ts", "payload", "way"))
 
 
-@pytest.mark.parametrize("seed", range(6))
-def test_update_plain_matches_jax_oracle(seed):
+def _hot_key_rows(rng, tab, pool, r):
+    """Rows that all carry one of 2 hot keys, which 90% of the nodes hold
+    (ways 0 and 1 of their sets) with old timestamps: a line of such a node
+    qualifies for about half the rows."""
+    hot = pool[:2]
+    holds = rng.random(tab["tags"].shape[0]) < 0.9
+    for way, key in enumerate(hot):
+        s = int(key % np.uint32(S))
+        tab["tags"][holds, s, way] = key
+        tab["valid"][holds, s, way] = True
+        tab["data_ts"][holds, s, way] = rng.integers(-1, 3, int(holds.sum()))
+    keys = hot[rng.integers(0, 2, r)]
+    return keys, (keys % np.uint32(S)).astype(np.int32)
+
+
+UPDATE_CASES = [(seed, False) for seed in range(6)] + [(seed, True) for seed in range(3)]
+
+
+@pytest.mark.parametrize("seed,hot", UPDATE_CASES,
+                         ids=[f"hot{s}" if hot else str(s) for s, hot in UPDATE_CASES])
+def test_update_plain_matches_jax_oracle(seed, hot):
     rng = np.random.default_rng(seed)
     pool = key_pool(rng, 12)
     n, r = 5, 17
     tab = arbitrary_tables(rng, n, S, W, D, pool)
-    keys, sidx = _queries(rng, pool, r)          # duplicate rows are common
+    if hot:
+        keys, sidx = _hot_key_rows(rng, tab, pool, r)
+    else:
+        keys, sidx = _queries(rng, pool, r)      # duplicate rows are common
     row_ts = rng.integers(-1, 14, r).astype(np.int32)
     row_data = rng.random((r, D)).astype(np.float32)
     live = rng.random((n, r)) < 0.6

@@ -3,6 +3,11 @@
 ``tests/test_kernels.py``'s sweep shapes in bfloat16 and float32, with
 ragged lengths, length 1, permuted page tables and inactive-slot rows.
 
+Also the kernel's split over the KV length: ``ops.paged_split_plan``
+covers every page slot once and fills the card, and the rule by which the
+kernel merges the splits' partial softmax states, written here in plain
+torch, gives the plain version's result.
+
 Tolerances: float32 to 2e-5 (the sweep's own: a full softmax against an
 online one, and two einsum orders); bfloat16 outputs within one bfloat16
 ulp of JAX's, plus 2e-5 for the float32 accumulation order (both round one
@@ -101,3 +106,97 @@ def test_plain_paged_attention_equals_dense_decode_attention():
                                     k.reshape(b * n, page, hkv, d),
                                     v.reshape(b * n, page, hkv, d), table, lengths)
     torch.testing.assert_close(paged.reshape(b, 1, hq, d), dense, rtol=2e-5, atol=2e-5)
+
+
+# The kernel's split over the KV length (ops.paged_split_plan) and the rule
+# by which it merges the splits, written here in plain torch.
+
+PLAN_SHAPES = [(4, 8, 35), (16, 8, 2048), (6, 8, 35), (1, 1, 1), (2, 1, 4096), (128, 8, 2048),
+               (1, 8, 100_000), (3, 2, 7), (65_535, 1, 3)]
+
+
+@pytest.mark.parametrize("n_sms", [1, 7, 132])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_split_plan_covers_every_slot_once(shape, n_sms):
+    b, hkv, max_pages = shape
+    splits, per = ops.paged_split_plan(b, hkv, max_pages, n_sms)
+    assert 1 <= per <= ops.SPLIT_MAX_PAGES and 1 <= splits <= max_pages
+    covered = np.zeros(max_pages, dtype=int)
+    for s in range(splits):
+        lo, hi = s * per, min((s + 1) * per, max_pages)
+        assert lo < hi, f"split {s} is empty"
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 35), (16, 8, 2048)], ids=["serve_step", "long_context"])
+def test_split_plan_fills_the_card(shape):
+    """The serve step's and the long context's shapes make at least two
+    blocks per SM of an H100 (132 SMs)."""
+    b, hkv, max_pages = shape
+    splits, _ = ops.paged_split_plan(b, hkv, max_pages, 132)
+    assert b * hkv * splits >= 2 * 132
+
+
+@pytest.mark.parametrize("n_sms", [1, 132])
+def test_split_plan_one_page_slot_is_one_split(n_sms):
+    assert ops.paged_split_plan(4, 8, 1, n_sms) == (1, 1)
+
+
+def _split_and_combine(q, kp, vp, table, lengths, splits, per):
+    """The kernel's rule: each split's live page slots give a partial
+    softmax state (m, l, acc) in float32; a split past the live slots gives
+    none; the partials merge in split order."""
+    b, hkv, g, d = q.shape
+    page, max_pages = kp.shape[1], table.shape[1]
+    out = torch.empty((b, hkv, g, d), dtype=torch.float32)
+    for bi in range(b):
+        n = int(lengths[bi])
+        live = min(-(-n // page), max_pages) if n > 0 else max_pages
+        parts = []
+        for s in range(splits):
+            lo, hi = s * per, min((s + 1) * per, live)
+            if lo >= hi:
+                continue
+            ids = table[bi, lo:hi].long()
+            k = kp[ids].reshape(-1, hkv, d).float()
+            v = vp[ids].reshape(-1, hkv, d).float()
+            sc = torch.einsum("hgd,khd->hgk", q[bi].float(), k) * ref.inv_sqrt(d)
+            sc = torch.where(torch.arange(lo * page, hi * page) < n, sc, -1e30)
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("hgk,khd->hgd", p, v)))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        acc = torch.zeros((hkv, g, d))
+        tot = torch.zeros((hkv, g))
+        for m, l, a in parts:
+            w = torch.exp(m - mx)
+            tot = tot + w * l
+            acc = acc + w[..., None] * a
+        out[bi] = acc / tot.clamp(min=1e-37)[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("per", [1, 2, "plan"])
+@pytest.mark.parametrize("kind", ["ragged", "zero"])
+@pytest.mark.parametrize("shape", SWEEP)
+def test_split_and_combine_matches_plain(shape, kind, per):
+    """On the sweep's shapes: ragged lengths (1, a full table, an inactive
+    slot), or a length 0 (every slot masked: a uniform softmax over all
+    max_pages * page slots, an equal share from every split) beside one
+    that ends inside a page; splits of 1 and 2 page slots and the kernel's
+    own plan; float32, to the sweep's 2e-5."""
+    b, hkv, g, d, page, pages_total, max_pages = shape
+    q, kp, vp, table, lengths = (torch.from_numpy(a) for a in _inputs(
+        "edges", *shape, seed=7 * shape[0] + shape[3]))
+    if kind == "zero":
+        if b > 1:
+            lengths[-1] = max(1, max_pages * page // 2 - 3)
+        lengths[0] = 0
+    if per == "plan":
+        splits, per = ops.paged_split_plan(b, hkv, max_pages, 132)
+    else:
+        splits = -(-max_pages // per)
+    got = _split_and_combine(q, kp, vp, table, lengths, splits, per)
+    want = ref.paged_attention_ref(q, kp, vp, table, lengths)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
