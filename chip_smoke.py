@@ -8,14 +8,21 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 
 1. ``device``: the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions;
-2. ``build``: the build time of the kernels and ``ptxas``'s resource lines;
+2. ``build``: the build time of the kernels and ``ptxas``'s resource lines
+   for each entry function (every template instance); a stack frame or a
+   spill in any of them fails the run;
 3. ``kernels``: each kernel against its plain PyTorch version (bitwise),
    first on the inputs the main path gives it (copied from one tick of the
    dense and the city cell), then on arbitrary states at the same shapes
    (for ``flic_update`` also a hot-key state, where ~R rows race for one
    line, and a table too large for the kernel's shared memory, swept in
-   ranges of sets); with the median time of 20 runs of each and the card's
-   time bound for the bytes that those inputs need;
+   ranges of sets); for ``flic_insert`` and ``flic_lookup`` also states
+   that reach each of their instantiations (``ops.row_plans``: W in {1, 2,
+   3, 4, 8} with D in {3, 8}, tables 16-byte aligned and 4 bytes past a
+   boundary, which takes the scalar path) and a lookup on S = 8,192; with
+   the median time of 20 runs of each, the card's time bound for the bytes
+   that those inputs need, and ``launch_floor_ms``, the time of an empty
+   launch (``torch.cuda._sleep(0)``) under the same timing;
 4. ``replay``: the committed JAX replays (``src/repro_torch/testdata``)
    through ``run_sim`` with the kernels; the ``TickMetrics`` series must
    equal JAX's bitwise;
@@ -84,6 +91,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -105,6 +114,28 @@ REPLACES = {   # the TPU kernel each CUDA kernel replaces (the def of its pallas
     "flic_merge": "src/repro/kernels/flic_merge.py:36",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:45",
 }
+
+
+def ptxas_report(log: str) -> dict:
+    """``{entry function: its ptxas lines}`` from an ``nvcc -Xptxas -v``
+    log: registers, barriers and constant memory; stack frame and spills.
+    Names are demangled with ``c++filt`` where it is installed and cut to
+    the function and its template arguments."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
+        if m:
+            fn = m.group(1)
+        elif fn and ("registers" in ln or "stack frame" in ln):
+            text = ln.split(" : ", 1)[-1].strip()
+            out[fn] = f"{out[fn]}; {text}" if fn in out else text
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(out), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+        short = [re.sub(r"^void |\(anonymous namespace\)::", "", n).split("(")[0] for n in names]
+        if len(short) == len(out):
+            out = dict(zip(short, out.values()))
+    return out
 
 
 def emit(phase: str, **fields) -> None:
@@ -281,6 +312,37 @@ def lookup_work(torch, tags, data_ts, valid, data, keys, sidx):
 WORK = {"flic_insert": insert_work, "flic_update": update_work, "flic_lookup": lookup_work}
 
 
+def copy_at(torch, t, offset: int):
+    """A copy of ``t`` that starts ``offset`` bytes past a 16-byte boundary:
+    a contiguous view into a larger buffer, reshaped, where ``offset`` > 0."""
+    if offset == 0:
+        return t.clone()
+    skip = offset // t.element_size()
+    buf = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    view = buf[skip:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def clone_at_offset(torch, t):
+    """A copy of ``t`` at the same offset from a 16-byte boundary, so that a
+    fresh copy of a misaligned case takes the same kernel instantiation."""
+    return copy_at(torch, t, t.data_ptr() % 16)
+
+
+def plan_of(name: str, args):
+    """The instantiation the wrapper of FLIC kernel ``name`` launches for
+    ``args`` (``ops.insert_plan_for`` / ``ops.lookup_plan_for``, which the
+    wrappers call); None for the others."""
+    from repro_torch.kernels import ops
+
+    if name == "flic_insert":
+        return ops.insert_plan_for(*args)
+    if name == "flic_lookup":
+        return ops.lookup_plan_for(*args)
+    return None
+
+
 def check_and_time(torch, name: str, args, cycles_per_ms: float) -> dict:
     """One call of kernel ``name`` held bitwise against its plain version
     on the same inputs, then both timed."""
@@ -289,7 +351,7 @@ def check_and_time(torch, name: str, args, cycles_per_ms: float) -> dict:
     kernel, plain = getattr(ops, name), getattr(ref, f"{name}_ref")
 
     def fresh():
-        return [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        return [clone_at_offset(torch, a) if isinstance(a, torch.Tensor) else a for a in args]
 
     got = kernel(*fresh())
     torch.cuda.synchronize()
@@ -299,6 +361,9 @@ def check_and_time(torch, name: str, args, cycles_per_ms: float) -> dict:
             raise AssertionError(f"{name}: output {i} differs from the plain version")
     nbytes, ops_n, info = WORK[name](torch, *args)
     b_ms, b_by = bound(nbytes, ops_n)
+    plan = plan_of(name, args)
+    if plan is not None:
+        info["plan"] = plan._asdict()
     return dict(
         info, ms=time_ms(torch, kernel, fresh, cycles_per_ms),
         plain_ms=time_ms(torch, plain, fresh, cycles_per_ms),
@@ -454,11 +519,78 @@ def large_table_update(torch, gen):
             torch.rand((n, r), generator=gen, device=dev) < 0.7, 30]
 
 
+def insert_state(torch, gen, pool, n, s, w, d, aligned=True):
+    """Random ``flic_insert`` arguments: N nodes, S sets of W ways, D
+    payload floats; ``aligned=False`` puts every table and ``line_data`` 4
+    bytes past a 16-byte boundary."""
+    from repro_torch.core.cache_state import set_index
+
+    dev = gen.device
+    keys = pool[torch.randint(0, pool.numel(), (n,), generator=gen, device=dev)]
+    args = [*random_tables(torch, gen, n, s, w, d, pool), keys,
+            set_index(keys, s).to(torch.int32),
+            torch.randint(-1, 25, (n,), generator=gen, device=dev, dtype=torch.int32),
+            torch.randint(0, n, (n,), generator=gen, device=dev, dtype=torch.int32),
+            torch.rand(n, generator=gen, device=dev) < 0.5,
+            torch.rand(n, generator=gen, device=dev) < 0.8,
+            torch.rand((n, d), generator=gen, device=dev), 30]
+    if not aligned:
+        args[:8] = [copy_at(torch, t, 4) for t in args[:8]]
+        args[14] = copy_at(torch, args[14], 4)
+    return args
+
+
+def lookup_state(torch, gen, pool, c, s, w, d, q, aligned=True):
+    """Random ``flic_lookup`` arguments: C caches of S sets x W ways, D
+    payload floats, Q queries; ``aligned=False`` puts the tables 4 bytes
+    past a 16-byte boundary."""
+    from repro_torch.core.cache_state import set_index
+
+    dev = gen.device
+    tags, data_ts, _, _, valid, _, _, data = random_tables(torch, gen, c, s, w, d, pool)
+    tables = [tags, data_ts, valid, data]
+    if not aligned:
+        tables = [copy_at(torch, t, 4) for t in tables]
+    keys = pool[torch.randint(0, pool.numel(), (q,), generator=gen, device=dev)]
+    return [*tables, keys, set_index(keys, s).to(torch.int32)]
+
+
+def coverage_cases(torch, device) -> dict:
+    """Random states that reach every instantiation of ``flic_insert`` and
+    ``flic_lookup`` (``ops.row_plans``) through the wrappers' own choice:
+    W in {1, 2, 3, 4, 8} with D in {3, 8}, 16-byte aligned tables and tables
+    4 bytes past a boundary (the scalar path), at the dense cell's sizes
+    (N = C = 1,000 caches of S = 50 sets, Q = 67 queries; 2,000 inserting
+    nodes); ``w4_d8_offset4`` is the main shape at a 4-byte offset.  Also
+    a lookup on S = 8,192 (``w4_d8_s8192``, 8 caches, 1,000 queries).
+    ``{name: {label: args}}``."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    pool = torch.randint(-2**31, 2**31 - 1, (48,), generator=gen, device=device,
+                         dtype=torch.int32)
+    insert, lookup = {}, {}
+    for plan in ops.row_plans():
+        w = plan.ways or 3
+        aligned = plan.ways <= 1 or plan.row16   # a scalar row above W = 1: off a boundary
+        d = 8 if plan.pay16 or not aligned else 3
+        label = f"w{w}_d{d}" + ("" if aligned else "_offset4")
+        insert[label] = insert_state(torch, gen, pool, 2_000, 50, w, d, aligned)
+        lookup[label] = lookup_state(torch, gen, pool, 1_000, 50, w, d, 67, aligned)
+    lookup["w4_d8_s8192"] = lookup_state(torch, gen, pool, 8, 8_192, 4, 8, 1_000)
+    return {"flic_insert": insert, "flic_lookup": lookup}
+
+
 def kernel_phase(torch, device, dense_cfg, city_cfg, cycles_per_ms) -> dict:
     """Each kernel on the inputs the main path gives it (copied from one
     tick of each cell: dense tick 200, before the outage; city tick 60) and
     on arbitrary states; bitwise against the plain version, timed, bound.
-    The first main-path case of each kernel is its headline."""
+    The first main-path case of each kernel is its headline.  For
+    ``flic_insert`` and ``flic_lookup`` also every instantiation
+    (``coverage_cases``, which must reach each of ``ops.row_plans``)."""
+    from repro_torch.kernels import ops
+
     dense = capture_main_path(torch, device, dense_cfg, 201, {
         "flic_update": (200,), "flic_lookup": (200,), "flic_insert": (400,)})
     city = capture_main_path(torch, device, city_cfg, 61, {"flic_insert": (120, 121)})
@@ -469,13 +601,20 @@ def kernel_phase(torch, device, dense_cfg, city_cfg, cycles_per_ms) -> dict:
         "flic_update": {"dense_t200": dense["flic_update", 200]},
         "flic_lookup": {"dense_t200": dense["flic_lookup", 200]},
     }
-    for name, more in random_cases(torch, device).items():
-        cases[name].update(more)
-    return {
+    for more in (random_cases(torch, device), coverage_cases(torch, device)):
+        for name, by_label in more.items():
+            cases[name].update(by_label)
+    out = {
         name: {label: check_and_time(torch, name, args, cycles_per_ms)
                for label, args in by_label.items()}
         for name, by_label in cases.items()
     }
+    for name in ("flic_insert", "flic_lookup"):
+        reached = {tuple(v["plan"].values()) for v in out[name].values()}
+        missing = [p for p in ops.row_plans() if tuple(p) not in reached]
+        if missing:
+            raise AssertionError(f"{name}: no case reached the instantiations {missing}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1726,9 +1865,12 @@ def main() -> None:
 
     t0 = time.perf_counter()
     logs = build.build_all()
-    emit("build", seconds=time.perf_counter() - t0, built=sorted(logs),
-         ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
-                for k, v in logs.items()})
+    ptxas = {k: ptxas_report(v) for k, v in logs.items()}
+    emit("build", seconds=time.perf_counter() - t0, built=sorted(logs), ptxas=ptxas)
+    spilled = [f"{k}: {fn}" for k, fns in ptxas.items() for fn, line in fns.items()
+               if re.search(r"[1-9]\d* bytes (stack frame|spill)", line)]
+    if spilled:
+        raise AssertionError(f"ptxas reports a stack frame or spills in {spilled}")
 
     dense_cfg = SimConfig(
         n_nodes=1000, cache_lines=200, loss_model="gilbert_elliott",
@@ -1738,8 +1880,10 @@ def main() -> None:
                          workload=dataclasses.replace(wl.SCENARIOS["paper"], fanout=32))
 
     cycles_per_ms = spin_cycles_per_ms(torch)
+    launch_floor_ms = time_ms(torch, torch.cuda._sleep, lambda: [0], cycles_per_ms)
     kres = kernel_phase(torch, device, dense_cfg, city_cfg, cycles_per_ms)
-    emit("kernels", bitwise_equal=True, spin_cycles_per_ms=cycles_per_ms, **kres)
+    emit("kernels", bitwise_equal=True, spin_cycles_per_ms=cycles_per_ms,
+         launch_floor_ms=launch_floor_ms, **kres)
 
     replay_phase(torch, device)
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports a plain C launcher and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/repro_torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``).  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is not.  The
+``.gitignore``).  A library's file name carries a hash of its source, the
+shared headers beside it (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is not.  The
 build runs at first use: one ``nvcc`` per source, all started together.
 Nothing is built when this module is imported.
 """
@@ -47,7 +48,10 @@ def sources() -> dict[str, Path]:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``src``, named by a hash of the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -12,12 +12,17 @@ eight, ``flic_update`` ``data_ts``/``last_use``/``data``) and return those
 same tensors; the plain versions return new ones.  ``flic_merge``,
 ``paged_attention`` and ``ssd_scan`` allocate their outputs.
 
+``flic_insert`` and ``flic_lookup`` launch the instantiation of their
+kernel that ``insert_plan_for`` / ``lookup_plan_for`` pick from the
+arguments' shapes and alignment.
+
 ``LAUNCHES[name]`` counts the calls that launched kernel ``name``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -64,9 +69,9 @@ def _launcher(name: str, n_ptr: int, n_int: int):
     return fn
 
 
-def _launch(name: str, n_int: int, device, tensors, ints) -> None:
+def _launch(name: str, device, tensors, ints) -> None:
     """Launch kernel ``name``; a ``None`` among ``tensors`` is a null pointer."""
-    fn = _launcher(name, len(tensors), n_int)
+    fn = _launcher(name, len(tensors), len(ints))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*[None if t is None else t.data_ptr() for t in tensors], *ints, stream)
@@ -76,6 +81,68 @@ def _launch(name: str, n_int: int, device, tensors, ints) -> None:
 
 
 I32, F32, BF16, BOOL = torch.int32, torch.float32, torch.bfloat16, torch.bool
+
+
+# Ways with a compile-time instantiation of the FLIC row kernels
+# (flic_insert, flic_lookup); other W take the runtime-W loop.
+TEMPLATE_WAYS = (1, 2, 4, 8)
+
+
+class RowPlan(NamedTuple):
+    """An instantiation of the ``flic_insert`` or ``flic_lookup`` kernel.
+    ``ways``: the compile-time W, or 0 for the runtime-W loop; ``row16``:
+    set rows read as 16-byte words; ``pay16``: payload copied as float4."""
+    ways: int
+    row16: bool
+    pay16: bool
+
+
+def row_plan(w: int, d: int, aligned: bool) -> RowPlan:
+    """The instantiation for W ways, D payload floats and ``aligned`` (the
+    tensors the kernel reads and writes in 16-byte words start on 16-byte
+    boundaries): compile-time W for W in ``TEMPLATE_WAYS``; 16-byte rows
+    where aligned and W > 1; float4 payloads where aligned and D % 4 == 0."""
+    ways = w if w in TEMPLATE_WAYS else 0
+    return RowPlan(ways, aligned and ways > 1, aligned and d % 4 == 0)
+
+
+def row_plans() -> list[RowPlan]:
+    """Every instantiation of either kernel (what ``row_plan`` can return)."""
+    return sorted({row_plan(w, d, a) for w in (*TEMPLATE_WAYS, 3) for d in (3, 8)
+                   for a in (False, True)})
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def insert_plan_for(tags, data_ts, ins_ts, origin, valid, dirty, last_use, data,
+                    keys, sidx, line_ts, line_origin, line_dirty, live, line_data,
+                    now=None) -> RowPlan:
+    """The instantiation ``flic_insert`` launches for these arguments:
+    aligned where the eight tables and ``line_data`` are."""
+    return row_plan(tags.shape[-1], data.shape[-1],
+                    _aligned(tags, data_ts, ins_ts, origin, valid, dirty, last_use, data,
+                             line_data))
+
+
+def lookup_plan_for(tags, data_ts, valid, data, keys, sidx) -> RowPlan:
+    """The instantiation ``flic_lookup`` launches for these arguments:
+    aligned where the four tables are (its outputs are fresh, aligned)."""
+    return row_plan(tags.shape[-1], data.shape[-1], _aligned(tags, data_ts, valid, data))
+
+
+def insert_threads(n: int, n_sms: int) -> int:
+    """Block size of ``flic_insert`` for N nodes: one warp a block while
+    128-thread blocks would leave most SMs idle (N < 64 per SM), so that
+    the row loads spread over more SMs; else 128."""
+    return 128 if n >= 64 * n_sms else 32
+
+
+def lookup_threads(q: int) -> int:
+    """Block size of ``flic_lookup`` (queries of one cache a block): up to
+    256, no more warps than Q needs."""
+    return min(256, max(1, -(-q // 32)) * 32)
 
 
 def flic_insert(tags, data_ts, ins_ts, origin, valid, dirty, last_use, data,
@@ -100,11 +167,13 @@ def flic_insert(tags, data_ts, ins_ts, origin, valid, dirty, last_use, data,
         line_origin=(line_origin, I32, lane), line_dirty=(line_dirty, BOOL, lane),
         live=(live, BOOL, lane), line_data=(line_data, F32, (n, d)),
     )
+    args = (tags, data_ts, ins_ts, origin, valid, dirty, last_use, data, keys, sidx,
+            line_ts, line_origin, line_dirty, live, line_data)
+    plan = insert_plan_for(*args)
     _launch(
-        "flic_insert", 5, tags.device,
-        (tags, data_ts, ins_ts, origin, valid, dirty, last_use, data, keys, sidx,
-         line_ts, line_origin, line_dirty, live, line_data),
-        (int(now), n, s, w, d),
+        "flic_insert", tags.device, args,
+        (int(now), n, s, w, d, plan.ways, int(plan.row16), int(plan.pay16),
+         insert_threads(n, sm_count(tags.device))),
     )
     return tags, data_ts, ins_ts, origin, valid, dirty, last_use, data
 
@@ -132,7 +201,7 @@ def flic_update(tags, data_ts, valid, last_use, data, keys, sidx, row_ts,
     )
     counts = torch.empty((n,), dtype=I32, device=tags.device)
     _launch(
-        "flic_update", 6, tags.device,
+        "flic_update", tags.device,
         (tags, data_ts, valid, last_use, data, keys, sidx, row_ts, row_data, live, counts),
         (int(now), n, r, s, w, d),
     )
@@ -153,15 +222,19 @@ def flic_lookup(tags, data_ts, valid, data, keys, sidx):
         tags=(tags, I32, tab), data_ts=(data_ts, I32, tab), valid=(valid, BOOL, tab),
         data=(data, F32, (c, s, w, d)), keys=(keys, I32, (q,)), sidx=(sidx, I32, (q,)),
     )
+    threads = lookup_threads(q)
+    if -(-q // threads) > 65_535:
+        raise ValueError(f"{q} queries exceed the kernel's grid limit")
+    plan = lookup_plan_for(tags, data_ts, valid, data, keys, sidx)
     dev = tags.device
     hit = torch.empty((c, q), dtype=BOOL, device=dev)
     ts = torch.empty((c, q), dtype=I32, device=dev)
     payload = torch.empty((c, q, d), dtype=F32, device=dev)
     way = torch.empty((c, q), dtype=I32, device=dev)
     _launch(
-        "flic_lookup", 5, dev,
+        "flic_lookup", dev,
         (tags, data_ts, valid, data, keys, sidx, hit, ts, payload, way),
-        (c, q, s, w, d),
+        (c, q, s, w, d, plan.ways, int(plan.row16), int(plan.pay16), threads),
     )
     return hit, ts, payload, way
 
@@ -185,7 +258,7 @@ def flic_merge(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b):
     out = (torch.empty_like(tags_a), torch.empty_like(ts_a), torch.empty_like(valid_a),
            torch.empty_like(data_a))
     _launch(
-        "flic_merge", 3, tags_a.device,
+        "flic_merge", tags_a.device,
         (tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b, *out),
         (s, w, d),
     )
@@ -283,7 +356,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
         part = torch.empty(b * hkv * splits * g * (d + 2), dtype=F32, device=q.device)
         arrivals = _arrivals(q.device, b * hkv * -(-g // 4))
     _launch(
-        "paged_attention", 11, q.device,
+        "paged_attention", q.device,
         (q, k_pages, v_pages, page_table, lengths, out, part, arrivals),
         (b, hkv, g, d, page, n_pool, max_pages, splits, per, int(q.dtype == BF16),
          int(k_pages.dtype == BF16)),
@@ -307,6 +380,6 @@ def ssd_scan(states, chunk_decay, init=None):
     _check(states.device, **checks)
     prev = torch.empty_like(states)
     final = torch.empty((b, h, p, n), dtype=F32, device=states.device)
-    _launch("ssd_scan", 4, states.device, (states, chunk_decay, init, prev, final),
+    _launch("ssd_scan", states.device, (states, chunk_decay, init, prev, final),
             (b, c, h, p * n))
     return prev, final

@@ -65,3 +65,14 @@ def test_kernels_build_for_hopper_into_an_ignored_directory():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text('#include "rows.cuh"\n')
+    (tmp_path / "rows.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path(tmp_path / "k.cu")
+    assert before == build.library_path(tmp_path / "k.cu")
+    (tmp_path / "rows.cuh").write_text("// two\n")
+    assert build.library_path(tmp_path / "k.cu") != before
+    assert set(build.sources()) == {"k"}

@@ -37,12 +37,24 @@ def _check(got, want, names):
         np.testing.assert_array_equal(as_numpy(g, like=w), w, err_msg=name)
 
 
-@pytest.mark.parametrize("seed", range(4))
-@pytest.mark.parametrize("q", [1, 13, 67])
-def test_lookup_plain_matches_jax_oracle(seed, q):
+# (W, D) of the kernels' instantiations: W = 1, 2, 4, 8 have their own, D
+# % 4 == 0 moves the payload as float4.  (4, 3) is the original shape.
+SHAPES = [(1, 3), (2, 8), (4, 3), (4, 8), (8, 8)]
+LOOKUP_CASES = ([(q, seed, 4, 3) for q in (1, 13, 67) for seed in range(4)]
+                + [(q, seed, w, d) for w, d in SHAPES if (w, d) != (4, 3)
+                   for q in (13, 67) for seed in range(2)])
+
+
+def _shape_id(w, d):
+    return "" if (w, d) == (4, 3) else f"w{w}d{d}-"
+
+
+@pytest.mark.parametrize("q,seed,w,d", LOOKUP_CASES,
+                         ids=[f"{_shape_id(w, d)}{q}-{seed}" for q, seed, w, d in LOOKUP_CASES])
+def test_lookup_plain_matches_jax_oracle(q, seed, w, d):
     rng = np.random.default_rng(seed)
     pool = key_pool(rng)
-    tab = arbitrary_tables(rng, 6, S, W, D, pool)
+    tab = arbitrary_tables(rng, 6, S, w, d, pool)
     keys, sidx = _queries(rng, pool, q)
     want = jax.vmap(jref.flic_lookup_ref, in_axes=(0, 0, 0, 0, None, None))(
         jnp.asarray(tab["tags"].view(np.int32)), tab["data_ts"], tab["valid"],
@@ -103,12 +115,17 @@ def test_update_plain_matches_jax_oracle(seed, hot):
     assert int(np.asarray(want[3]).sum()) > 0
 
 
-@pytest.mark.parametrize("seed", range(6))
-def test_insert_plain_matches_jax_oracle(seed):
+INSERT_CASES = ([(seed, 4, 3) for seed in range(6)]
+                + [(seed, w, d) for w, d in SHAPES if (w, d) != (4, 3) for seed in range(3)])
+
+
+@pytest.mark.parametrize("seed,w,d", INSERT_CASES,
+                         ids=[f"{_shape_id(w, d)}{seed}" for seed, w, d in INSERT_CASES])
+def test_insert_plain_matches_jax_oracle(seed, w, d):
     rng = np.random.default_rng(seed)
     pool = key_pool(rng, 12)
     n = 9
-    tab = arbitrary_tables(rng, n, S, W, D, pool)
+    tab = arbitrary_tables(rng, n, S, w, d, pool)
     keys, sidx = _queries(rng, pool, n)
     lanes = dict(
         keys=keys, sidx=sidx,
@@ -116,7 +133,7 @@ def test_insert_plain_matches_jax_oracle(seed):
         line_origin=rng.integers(0, n, n).astype(np.int32),
         line_dirty=rng.random(n) < 0.5,
         live=rng.random(n) < 0.75,
-        line_data=rng.random((n, D)).astype(np.float32),
+        line_data=rng.random((n, d)).astype(np.float32),
     )
     names = ("tags", "data_ts", "ins_ts", "origin", "valid", "dirty", "last_use", "data")
     jargs = [jnp.asarray(tab[k].view(np.int32) if k == "tags" else tab[k]) for k in names]
@@ -125,6 +142,95 @@ def test_insert_plain_matches_jax_oracle(seed):
     targs = [as_torch(tab[k]) for k in names] + [as_torch(v) for v in lanes.values()]
     for fn in (ref.flic_insert_ref, ops.flic_insert):
         _check(fn(*targs, 13), want, names)
+
+
+# (W, D, aligned) -> the instantiation both wrappers pick: a 16-byte row
+# needs aligned tables and W > 1, a float4 payload aligned storage and
+# D % 4 == 0; W outside (1, 2, 4, 8) takes the runtime-W loop (ways 0).
+PLAN_CASES = {
+    "w4_d8_aligned": ((4, 8, True), ops.RowPlan(4, True, True)),
+    "w4_d8_offset": ((4, 8, False), ops.RowPlan(4, False, False)),
+    "w3_d8_aligned": ((3, 8, True), ops.RowPlan(0, False, True)),
+    "w4_d3_aligned": ((4, 3, True), ops.RowPlan(4, True, False)),
+    "w1_d8_aligned": ((1, 8, True), ops.RowPlan(1, False, True)),
+}
+
+
+def _at(t, aligned):
+    """``t`` itself, or a contiguous copy 4 bytes past a 16-byte boundary
+    (a view into a larger buffer, reshaped)."""
+    assert t.data_ptr() % 16 == 0
+    if aligned:
+        return t
+    skip = 4 // t.element_size()
+    buf = torch.zeros(t.numel() + skip, dtype=t.dtype)
+    view = buf[skip:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _tables(rng, n, n_sets, w, d):
+    tab = arbitrary_tables(rng, n, n_sets, w, d, key_pool(rng))
+    return [as_torch(tab[k]) for k in ("tags", "data_ts", "ins_ts", "origin", "valid",
+                                        "dirty", "last_use", "data")]
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_insert_plan_picks_the_instantiation(case):
+    (w, d, aligned), want = PLAN_CASES[case]
+    assert ops.row_plan(w, d, aligned) == want
+    assert want in ops.row_plans()
+    rng = np.random.default_rng(0)
+    n = 5
+    tables = [_at(t, aligned) for t in _tables(rng, n, 6, w, d)]
+    lanes = [torch.zeros(n, dtype=torch.int32)] * 5 + [torch.ones(n, dtype=torch.bool)]
+    line_data = _at(torch.zeros((n, d)), aligned)
+    assert ops.insert_plan_for(*tables, *lanes, line_data, 3) == want
+    # one misaligned input is enough to take the scalar path
+    mixed = ops.insert_plan_for(*tables, *lanes, _at(line_data.clone(), False), 3)
+    assert mixed == ops.row_plan(w, d, False)
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+@pytest.mark.parametrize("n_sets,q", [(50, 1000), (50, 67), (8192, 1000)])
+def test_lookup_plan_picks_the_instantiation(case, n_sets, q):
+    """The lookup takes the insert's rule, whatever S and Q."""
+    (w, d, aligned), want = PLAN_CASES[case]
+    rng = np.random.default_rng(1)
+    tags, data_ts, _, _, valid, _, _, data = _tables(rng, 1, n_sets, w, d)
+    keys = torch.zeros(q, dtype=torch.int32)
+    args = [_at(t, aligned) for t in (tags, data_ts, valid, data)]
+    assert ops.lookup_plan_for(*args, keys, keys) == want
+    if aligned:
+        args[2] = _at(args[2], False)   # the valid flags alone off a boundary
+        assert ops.lookup_plan_for(*args, keys, keys) == ops.row_plan(w, d, False)
+
+
+def test_plans_stay_within_the_instantiations():
+    plans = set(ops.row_plans())
+    for w in range(1, 41):
+        for d in range(1, 17):
+            for aligned in (False, True):
+                assert ops.row_plan(w, d, aligned) in plans
+    assert len(plans) == 13
+
+
+@pytest.mark.parametrize("n,threads", [(1, 32), (1000, 32), (8447, 32), (8448, 128), (10_000, 128)])
+def test_insert_block_size(n, threads):
+    assert ops.insert_threads(n, 132) == threads
+
+
+@pytest.mark.parametrize("q,threads", [(1, 32), (32, 32), (67, 96), (256, 256), (1000, 256)])
+def test_lookup_block_size(q, threads):
+    assert ops.lookup_threads(q) == threads
+
+
+def test_alignment_of_offset_views():
+    buf = torch.zeros(65, dtype=torch.float32)
+    assert ops._aligned(buf)
+    view = buf[1:].view(4, 16)
+    assert view.is_contiguous() and not ops._aligned(view)
+    assert not ops._aligned(buf, view)
 
 
 def _reachable_state(seed, n=6, rounds=30):
