@@ -45,22 +45,37 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    on the serve run's inputs (decode step 20, layer 0), on a long context
    (16 sequences of up to 32,768 positions), on edge cases and on lengths
    placed against the kernel's split plan (on and inside split boundaries,
-   0, fewer live splits; a float32 long context), on shapes that reach the
-   kernel's other instances, with times, bounds and a
-   ``scaled_dot_product_attention`` yardstick; two calls give the same
-   bits, and a bad page id in the first or the last live slot gives NaN
-   for its sequence alone;
-9. ``serve_replay``: the committed JAX serving fixture through the port
+   0, fewer live splits; a float32 long context), on other shapes, on K/V
+   rows that are not 16-byte multiples (D = 12, 13, 20 in bfloat16, 12 and
+   13 in float32, the Granite-3 smoke model's split) and on pages 8 bytes
+   off a 16-byte boundary, each with the unit of its row copies
+   (``ops.paged_row_plan``), so that every instance of the kernel runs,
+   with times, bounds and a ``scaled_dot_product_attention`` yardstick;
+   two calls give the same bits, two calls with different split plans
+   running at once on two streams give the bits of each run alone, and a
+   bad page id in the first or the last live slot gives NaN for its
+   sequence alone;
+9. ``serve_replay``: the committed JAX serving fixtures (the Granite-8B and
+   the Granite-3-8B smoke configs; head size 16 and 12) through the port
    with the kernel, teacher-forced, including a tight pool that evicts,
    spills and fetches pages back; the page manager's stats must equal
    JAX's;
-10. ``merge``: ``flic_merge``'s path, its entry ``ops.flic_merge``
+10. ``serve_granite3``: Granite-3-8B at its published widths (40 layers,
+    head size 128, vocabulary 49,155; random bfloat16 weights from seed 0,
+    Granite-8B's freed first), 4 prompts of 512 tokens at batch 4, 16 new
+    tokens, page 16, through the kernel (once a layer and decode step),
+    then again with every kernel call held against the plain version;
+    prefill and decode times and peak memory;
+11. ``merge``: ``flic_merge``'s path, its entry ``ops.flic_merge``
     reconciling the dense cell's tables frozen at the outage's start (tick
     300) with those at its end (tick 420), launched once;
-11. ``kernels`` (``flic_merge``): the kernel against its plain version
-    (bitwise) on that catch-up, on ``kernels_bench.py``'s geometry and on
-    random replicas with ties and invalid lines, timed and bound;
-12. ``ssm``: the third main path, Mamba2-370M at full width (random
+12. ``kernels`` (``flic_merge``): the kernel against its plain version
+    (bitwise) on that catch-up, on ``kernels_bench.py``'s geometry, on
+    random replicas with ties and invalid lines, on every instantiation
+    (``ops.merge_plans``) and on tables 4 bytes off a 16-byte boundary,
+    timed with events and with the profiler (the kernel's own time), and
+    bound;
+13. ``ssm``: the third main path, Mamba2-370M at full width (random
     weights from seed 0), 4 prompts of 2,048 tokens prefilled and decoded
     32 greedy steps with the ``ssd_scan`` kernel (48 launches, one a layer
     of the prefill); the plain scan must give the same prefill logits,
@@ -70,11 +85,11 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     against plain in the same way; prefill and decode times, profiles of a decode
     step and a prefill, peak memory, the share of chunk decays that are 0,
     and decode step k against a prefill of the prompt and k tokens;
-13. ``kernels`` (``ssd_scan``): the kernel against its plain version
+14. ``kernels`` (``ssd_scan``): the kernel against its plain version
     (bitwise) on the served prefill's layer 0, a 128-chunk long context,
     random decays with an initial state and ``kernels_bench.py``'s
     geometry, timed and bound;
-14. ``ssm_replay``: the committed JAX Mamba2 fixture (float32 and
+15. ``ssm_replay``: the committed JAX Mamba2 fixture (float32 and
     bfloat16) through the port with the kernel, teacher-forced, within the
     CPU tests' tolerances.
 
@@ -754,7 +769,7 @@ def engine_phase(torch, device, name, cfg, ticks, must_launch):
 
 
 # ---------------------------------------------------------------------------
-# Phases 7-9: Granite-8B served through the paged_attention kernel.
+# Phases 7-10: Granite-8B and Granite-3-8B served through the paged_attention kernel.
 # ---------------------------------------------------------------------------
 
 # Serve cell: 4 distinct prompts of 512 tokens (whole pages, so prefix
@@ -762,6 +777,7 @@ def engine_phase(torch, device, name, cfg, ticks, must_launch):
 SERVE_PROMPTS, SERVE_PROMPT_LEN, SERVE_MAX_NEW = 4, 512, 32
 SERVE_BATCH, SERVE_PAGE = 4, 16
 SERVE_MAX_SEQ = SERVE_PROMPT_LEN + SERVE_MAX_NEW + SERVE_PAGE   # launch/serve.py's rule
+GRANITE3_MAX_NEW = 16   # the Granite-3-8B serve: its 4 prompts only, 16 new tokens
 CAPTURE_STEP = 20   # decode step whose layer-0 paged_attention inputs the kernels phase reuses
 # Teacher-forced logits of the plain paged run against the contiguous-cache
 # oracle (both plain PyTorch; they differ in how K/V are laid out and
@@ -789,9 +805,10 @@ def serve_prompts(vocab: int) -> list[list[int]]:
 
 
 def serve_run(torch, cfg, params, device, prompts, backend, script=None, capture=None,
-              shadow=None):
+              shadow=None, max_new=SERVE_MAX_NEW):
     """One run of the engine (``TeacherForcedEngine``, which records each
-    step's logits) with the launch counts set to 0 just before it.  Times
+    step's logits) with the launch counts set to 0 just before it, each
+    request ``max_new`` new tokens.  Times
     each prefill and each decode step on the host clock between
     synchronisations.  With ``capture`` (a dict), copies the inputs of
     decode step ``CAPTURE_STEP`` and of its layer-0 ``paged_attention``.
@@ -803,10 +820,11 @@ def serve_run(torch, cfg, params, device, prompts, backend, script=None, capture
     from repro_torch.serving import engine as em
 
     eng = em.TeacherForcedEngine(
-        cfg, params, script=script, max_batch=SERVE_BATCH, max_seq=SERVE_MAX_SEQ,
-        page_size=SERVE_PAGE, kernel_backend=backend, device=device)
+        cfg, params, script=script, max_batch=SERVE_BATCH,
+        max_seq=SERVE_PROMPT_LEN + max_new + SERVE_PAGE, page_size=SERVE_PAGE,
+        kernel_backend=backend, device=device)
     for p in prompts:
-        eng.submit(p, max_new=SERVE_MAX_NEW)
+        eng.submit(p, max_new=max_new)
     prefill_ms, decode_ms = [], []
     real_prefill, real_step = em.model_prefill, em.paged_decode_step
     kernel_attn = ops.paged_attention
@@ -1064,24 +1082,84 @@ def serve_phase(torch, device) -> dict:
                 max_abs_err=float(shadow["max_err"]))
 
 
+def granite3_serve_phase(torch, device) -> dict:
+    """Granite-3-8B at its published widths (random bfloat16 weights from
+    ``torch.Generator`` seed 0): 4 prompts of 512 tokens at batch 4, each
+    ``GRANITE3_MAX_NEW`` new tokens, page 16, through ``ServeEngine`` with
+    the kernel (timed, counted), then again teacher-forced with every
+    kernel call held against the plain version on its inputs."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.model import init_model, model_param_defs
+    from repro_torch.models.params import param_count
+
+    cfg = get_arch("granite_3_8b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator().manual_seed(0), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = serve_prompts(cfg.vocab_size)[:SERVE_PROMPTS]
+    keng, kinfo = serve_run(torch, cfg, params, device, prompts, None, max_new=GRANITE3_MAX_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(kinfo["decode_ms"])
+    launches = kinfo["launches"]["paged_attention"]
+    if launches != cfg.num_layers * steps or steps == 0:
+        raise AssertionError(f"granite3 serve: paged_attention launched {launches} times in "
+                             f"{steps} decode steps of {cfg.num_layers} layers")
+    if len(keng.finished) != len(prompts) or any(
+            len(r.tokens) != GRANITE3_MAX_NEW for r in keng.finished):
+        raise AssertionError("granite3 serve: not every request finished with its tokens")
+    shadow = {"max_err": torch.zeros((), device=device),
+              "excess": torch.full((), -float("inf"), device=device), "calls": 0}
+    script = {r.rid: r.tokens for r in keng.finished}
+    serve_run(torch, cfg, params, device, prompts, None, script=script, shadow=shadow,
+              max_new=GRANITE3_MAX_NEW)
+    if shadow["calls"] != launches or float(shadow["excess"]) > 0:
+        raise AssertionError(f"granite3 serve: a kernel call left the tolerance of the plain "
+                             f"version (largest error {float(shadow['max_err'])}, "
+                             f"{shadow['calls']} calls)")
+    logits = torch.stack([torch.stack(v) for v in keng.logits.values()])
+    if not bool(torch.isfinite(logits.float()).all()) or logits.shape[-1] != cfg.vocab_size:
+        raise AssertionError(f"granite3 serve: logits of shape {tuple(logits.shape)}, "
+                             "or not finite")
+    gen_tokens = sum(len(r.tokens) for r in keng.finished)
+    emit("serve_granite3", arch=cfg.name, params=param_count(model_param_defs(cfg)),
+         init_s=init_s, requests=len(prompts), prompt_len=SERVE_PROMPT_LEN,
+         max_new=GRANITE3_MAX_NEW, max_batch=SERVE_BATCH, page_size=SERVE_PAGE,
+         decode_steps=steps, prefill_ms=kinfo["prefill_ms"],
+         decode_ms_per_step_median=statistics.median(kinfo["decode_ms"]),
+         wall_s=kinfo["wall_s"], generated_tokens=gen_tokens,
+         decode_tokens_per_s=gen_tokens / (sum(kinfo["decode_ms"]) / 1e3),
+         launches=kinfo["launches"], paged_calls_checked=shadow["calls"],
+         paged_max_abs_err=float(shadow["max_err"]), peak_memory_bytes=peak,
+         mgr_stats=keng.mgr.stats)
+    return dict(launches=launches, max_abs_err=float(shadow["max_err"]))
+
+
+SERVE_FIXTURES = ("serve_granite8b_smoke.npz", "serve_granite3_smoke.npz")
+
+
 def serve_replay_phase(torch, device) -> None:
-    """The committed JAX fixture (Granite-8B smoke config, bfloat16) through
-    the port with the kernel, teacher-forced, both cases."""
+    """The committed JAX fixtures (the Granite-8B and Granite-3-8B smoke
+    configs, bfloat16) through the port with the kernel, teacher-forced,
+    both cases of each."""
     from repro_torch.kernels import ops
     from repro_torch.serving.replay import compare_case, load_serve_replay, replay_case
 
-    path = ROOT / "src" / "repro_torch" / "testdata" / "serve_granite8b_smoke.npz"
-    cfg, params, cases = load_serve_replay(path, device)
-    for name, case in cases.items():
-        ops.reset_launches()
-        res = compare_case(case, replay_case(cfg, params, case, device), REPLAY_TOL)
-        torch.cuda.synchronize()
-        res["launches"] = ops.LAUNCHES["paged_attention"]
-        ok = (res["max_abs_diff"] <= REPLAY_TOL and res["argmax_equal_where_decided"]
-              and res["reused_equal"] and res["stats_equal"] and res["launches"] > 0)
-        if not ok:
-            raise AssertionError(f"serve replay {name}: {res}")
-        emit("serve_replay", case=name, tol=REPLAY_TOL, stats=case["stats"], **res)
+    for fixture in SERVE_FIXTURES:
+        path = ROOT / "src" / "repro_torch" / "testdata" / fixture
+        cfg, params, cases = load_serve_replay(path, device)
+        for name, case in cases.items():
+            ops.reset_launches()
+            res = compare_case(case, replay_case(cfg, params, case, device), REPLAY_TOL)
+            torch.cuda.synchronize()
+            res["launches"] = ops.LAUNCHES["paged_attention"]
+            ok = (res["max_abs_diff"] <= REPLAY_TOL and res["argmax_equal_where_decided"]
+                  and res["reused_equal"] and res["stats_equal"] and res["launches"] > 0)
+            if not ok:
+                raise AssertionError(f"serve replay {fixture} {name}: {res}")
+            emit("serve_replay", fixture=fixture, arch=cfg.name, head_dim=cfg.resolved_head_dim,
+                 case=name, tol=REPLAY_TOL, stats=case["stats"], **res)
 
 
 # The paged_attention kernel against its plain version.
@@ -1281,13 +1359,12 @@ def split_cases(torch, device, gen) -> dict:
 
 
 def shape_cases(torch, device, gen) -> dict:
-    """Small random states that reach every instance of the kernel beyond
-    the served one: bfloat16 at D=256 (the wider mma instance), D=96 (12
-    chunks a row: no power of two) with G=5 (two head groups), D=40 (no
-    multiple of 16: the bfloat16 CUDA-core instance), D=16 and page 8 (the
-    smoke model's); float32 q over bfloat16 at D=80; float32 at D=64 with
-    G=8 and page 32.  Random lengths with a 0, page ids anywhere in the
-    pool."""
+    """Small random states at shapes beyond the served one: bfloat16 at
+    D=256 (the wider mma instance), D=96 (12 chunks a row: no power of two)
+    with G=5 (two head groups), D=40 (no multiple of 16: a ring row padded
+    to a whole k-step of the mma), D=16 and page 8 (the smoke model's);
+    float32 q over bfloat16 at D=80; float32 at D=64 with G=8 and page 32.
+    Random lengths with a 0, page ids anywhere in the pool."""
     cases = {}
     for b, hkv, g, d, page, max_pages, n_pool, qdt, kvdt in (
             (3, 2, 4, 256, 16, 40, 200, torch.bfloat16, torch.bfloat16),
@@ -1328,14 +1405,126 @@ def long_context_f32_case(torch, device, gen):
     return [q, kp, vp, table, lengths]
 
 
+def paged_random(torch, gen, b, hkv, g, d, page, max_pages, n_pool, qdt, kvdt, offset=0):
+    """Random q and K/V pages (``offset`` bytes past a 16-byte boundary),
+    the page table a permutation of the pool with the slots past each
+    length 0, lengths 1, a full table, 0 and random."""
+    dev = gen.device
+    lengths = torch.randint(1, max_pages * page + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0], lengths[1], lengths[-1] = 1, max_pages * page, 0
+    table = torch.randperm(n_pool, generator=gen, device=dev)[: b * max_pages]
+    table = table.to(torch.int32).reshape(b, max_pages)
+    live = ((lengths.long() + page - 1) // page).clamp(min=1)
+    live[lengths <= 0] = max_pages
+    table[torch.arange(max_pages, device=dev)[None] >= live[:, None]] = 0
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev).to(qdt)
+    kp, vp = (copy_at(torch, torch.randn((n_pool, page, hkv, d), generator=gen,
+                                         device=dev).to(kvdt), offset) for _ in range(2))
+    return [q, kp, vp, table, lengths]
+
+
+# K/V rows that are not 16-byte multiples, pages off a 16-byte boundary:
+# label -> (B, Hkv, G, D, page, max_pages, pool, q dtype, K/V dtype, offset).
+BF, F = "bfloat16", "float32"
+ROW_CASES = {
+    "d12_bf16": (6, 8, 4, 12, 16, 35, 280, BF, BF, 0),
+    "d12_f32": (6, 8, 4, 12, 16, 35, 280, F, F, 0),
+    "d20_bf16": (6, 8, 4, 20, 16, 35, 280, BF, BF, 0),
+    "d13_bf16": (6, 8, 4, 13, 16, 35, 280, BF, BF, 0),
+    "d12_bf16_offset8": (6, 8, 4, 12, 16, 35, 280, BF, BF, 8),
+    # the Granite-3 smoke model's attention (Hkv 2, G 2, D 12, page 8) over
+    # the serve fixture's 8 page slots, which the split plan cuts in two
+    "granite3_smoke_splits": (2, 2, 2, 12, 8, 8, 16, BF, BF, 0),
+    # the padded instances of the other dtype pairs and k-steps
+    "d128_bf16_offset8": (6, 8, 4, 128, 16, 35, 280, BF, BF, 8),
+    "d256_bf16_offset8": (3, 2, 4, 256, 16, 40, 200, BF, BF, 8),
+    "d12_qf32_kvbf16": (6, 8, 4, 12, 16, 35, 280, F, BF, 0),
+    "d13_f32": (6, 8, 4, 13, 16, 35, 280, F, F, 0),
+}
+
+
+def paged_instance(torch, args) -> str:
+    """The kernel instance ``ops.paged_attention`` launches for ``args``
+    (``paged_attention_launch``'s rule): the dtype pair, the mma's k-steps
+    (bfloat16 q over bfloat16 K/V), and ``wide`` (rows of whole 16-byte
+    chunks, whole 16-value k-steps with the mma, copied in 16-byte chunks)
+    or ``padded`` (zero-padded ring rows, any copy unit)."""
+    from repro_torch.kernels import ops
+
+    q, kp = args[0], args[1]
+    d = q.shape[-1]
+    kind = f"q{str(q.dtype)[6:]}_kv{str(kp.dtype)[6:]}"
+    mma = q.dtype == kp.dtype == torch.bfloat16
+    if mma:
+        kind += f"_mma{8 if d <= 128 else 16}"
+    wide = ops.paged_row_plan_for(*args) == 16 and (not mma or d % 16 == 0)
+    return kind + ("_wide" if wide else "_padded")
+
+
+
+def two_streams(torch, device, gen, cycles_per_ms, tries: int = 8) -> dict:
+    """Two ``paged_attention`` calls with different split plans (B=4,
+    Hkv=8, G=4, D=128, page 16, 1,024 and 2,048 page slots, so that their
+    arrival counters have the same indices) enqueued on two streams with no
+    synchronisation between them.  Each stream waits on one event recorded
+    behind a 2 ms spin on the current stream, so both calls are released at
+    the same instant and run at once (``overlap_ms``: the time both were in
+    flight, from events on each stream; it must be > 0 in some try).  Each
+    try draws new queries, so that partial states a call finds left in its
+    scratch by an earlier try are not its own.  Each output must equal the
+    same call run alone, bit for bit, in every try."""
+    from repro_torch.kernels import ops
+
+    calls = [paged_random(torch, gen, 4, 8, 4, 128, 16, m, 4 * m, torch.bfloat16, torch.bfloat16)
+             for m in (1024, 2048)]
+    plans = [ops.paged_split_plan(4, 8, a[3].shape[1], ops.sm_count(device)) for a in calls]
+    here = torch.cuda.current_stream(device)
+    streams = [torch.cuda.Stream(device) for _ in calls]
+    differ, overlap = 0, []
+
+    def event(stream):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(stream)
+        return e
+
+    for _ in range(tries):
+        for a in calls:
+            a[0] = torch.randn(a[0].shape, generator=gen, device=device).to(torch.bfloat16)
+        alone = [ops.paged_attention(*a) for a in calls]
+        torch.cuda._sleep(int(2 * cycles_per_ms))
+        gate = event(here)
+        outs, spans = [], []
+        for st, a in zip(streams, calls):
+            st.wait_event(gate)
+            with torch.cuda.stream(st):
+                t0 = event(st)
+                outs.append(ops.paged_attention(*a))
+                spans.append((t0, event(st)))
+        torch.cuda.synchronize()
+        ms = [(gate.elapsed_time(t0), gate.elapsed_time(t1)) for t0, t1 in spans]
+        overlap.append(min(e for _, e in ms) - max(b for b, _ in ms))
+        differ += sum(not torch.equal(o.view(torch.int16), w.view(torch.int16))
+                      for o, w in zip(outs, alone))
+    if max(overlap) <= 0:
+        raise AssertionError(f"paged_attention two_streams: the calls never ran at once {overlap}")
+    if differ:
+        raise AssertionError(f"paged_attention two_streams: {differ} of {2 * tries} outputs "
+                             "differ from the calls run alone")
+    return dict(split_plans=plans, tries=tries, overlap_ms=overlap, outputs_differing=differ,
+                bitwise_equal=True)
+
+
 def paged_kernel_phase(torch, device, attn_args, cycles_per_ms) -> dict:
     """``paged_attention`` against its plain version: (a) the inputs of
     decode step ``CAPTURE_STEP``'s layer 0 in the serve run, (b) a long
     context, (c) edge cases, split cases, the kernel's other instances and a
-    float32 long context; two
-    calls on the same inputs give the same bits; a page id outside the pool,
-    in the first or in the last live page slot of sequence 0, gives NaN for
-    sequence 0 alone."""
+    float32 long context; (d) K/V rows that are not 16-byte multiples and
+    pages off a 16-byte boundary (``ROW_CASES``, timed; every instance of
+    the kernel, wide and padded, must run); two calls on
+    the same inputs give the same bits, also when two calls run at once on
+    two streams; a page id outside the pool, in the first or in the last
+    live page slot of sequence 0, gives NaN for sequence 0 alone."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=device)
@@ -1348,6 +1537,7 @@ def paged_kernel_phase(torch, device, attn_args, cycles_per_ms) -> dict:
                            b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32)):
             raise AssertionError(f"paged_attention {label}: two calls gave different bits")
 
+    instances = {paged_instance(torch, attn_args)}
     res = {"serve_step20_layer0": paged_case(torch, attn_args, cycles_per_ms, flush, True)}
     same_bits(attn_args, "serve_step20_layer0")
     long = long_context_case(torch, device, gen)
@@ -1360,9 +1550,33 @@ def paged_kernel_phase(torch, device, attn_args, cycles_per_ms) -> dict:
              "long_context_f32_b16": long_context_f32_case(torch, device, gen)}
     for label, args in cases.items():
         got = ops.paged_attention(*args)
-        res[label] = dict(max_abs_err=paged_check(torch, got, ref.paged_attention_ref(*args), args))
+        res[label] = dict(max_abs_err=paged_check(torch, got, ref.paged_attention_ref(*args), args),
+                          chunk=ops.paged_row_plan_for(*args), instance=paged_instance(torch, args))
+        if label.startswith("splits"):   # timed: a split plan's boundaries on the 16-byte path
+            res[label] = dict(res[label], **paged_case(torch, args, cycles_per_ms, flush, False))
+        instances.add(res[label]["instance"])
     del cases
     torch.cuda.empty_cache()
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    for label, (b, hkv, g, d, page, max_pages, n_pool, qdt, kvdt, offset) in ROW_CASES.items():
+        args = paged_random(torch, gen, b, hkv, g, d, page, max_pages, n_pool, dtypes[qdt],
+                            dtypes[kvdt], offset)
+        splits, per = ops.paged_split_plan(b, hkv, max_pages, ops.sm_count(device))
+        res[label] = dict(paged_case(torch, args, cycles_per_ms, flush, False),
+                          chunk=ops.paged_row_plan_for(*args), instance=paged_instance(torch, args),
+                          offset=args[1].data_ptr() % 16, splits=splits, pages_per_split=per)
+        instances.add(res[label]["instance"])
+        same_bits(args, label)
+    if res["granite3_smoke_splits"]["splits"] < 2:
+        raise AssertionError("paged_attention: the Granite-3 smoke case did not split")
+    want = {f"{k}_{c}" for k in ("qbfloat16_kvbfloat16_mma8", "qbfloat16_kvbfloat16_mma16",
+                                 "qfloat32_kvbfloat16", "qfloat32_kvfloat32")
+            for c in ("wide", "padded")}
+    if instances != want:
+        raise AssertionError(f"paged_attention: the cases reached {sorted(instances)}, "
+                             f"not every instance {sorted(want)}")
+    res["instances"] = sorted(instances)
+    res["two_streams"] = two_streams(torch, device, gen, cycles_per_ms)
     q, kp, vp, table, lengths = attn_args
     page = kp.shape[1]
     last = (int(lengths[0]) + page - 1) // page - 1
@@ -1379,7 +1593,7 @@ def paged_kernel_phase(torch, device, attn_args, cycles_per_ms) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 10-11: flic_merge, replica catch-up on the dense cell's tables.
+# Phases 11-12: flic_merge, replica catch-up on the dense cell's tables.
 # ---------------------------------------------------------------------------
 
 MERGE_AT = (300, 420)   # the dense cell's outage starts at tick 300 and ends at 420
@@ -1476,12 +1690,43 @@ def merge_random(torch, gen, s, w, d):
     return a + b
 
 
+def profiled_ms(torch, fn, make_args, name: str, runs: int = TIMED_RUNS, tries: int = 3):
+    """Mean device time of the CUDA kernels whose name holds ``name`` in
+    ``runs`` calls of ``fn(*make_args())`` under ``torch.profiler``: the
+    kernel's own time, without the launch and the events that ``time_ms``
+    counts.  The profiler drops records at times, so a profile that kept
+    fewer than half the runs' is taken again, up to ``tries`` times; "not
+    measured" where none kept a record of such a kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    mean = "not measured"
+    for _ in range(tries):
+        fn(*make_args())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn(*make_args())
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if e.device_type == cuda and name in e.key]
+        count = sum(e.count for e in found)
+        if count:
+            mean = sum(e.self_device_time_total for e in found) / 1e3 / count
+        if count >= runs // 2:
+            break
+    return mean
+
+
 def merge_kernel_phase(torch, device, catch_up, cycles_per_ms) -> dict:
     """``flic_merge`` bitwise against its plain version and timed (the L2
-    cache flushed before each run): (a) the dense cell's catch-up, (b)
-    ``benchmarks/kernels_bench.py``'s geometry, (c) random replicas with
-    ties, lines invalid in both and invalid newer lines, at a set count no
-    block size divides."""
+    cache flushed before each run) with CUDA events (``ms``) and with the
+    profiler (``profiled_ms``, the kernel alone): (a) the dense cell's
+    catch-up, (b) ``benchmarks/kernels_bench.py``'s geometry, (c) random
+    replicas with ties, lines invalid in both and invalid newer lines, at a
+    set count no block size divides, (d) every instantiation
+    (``ops.merge_plans``: W in {1, 2, 4, 8} with D = 8 on 16-byte aligned
+    tables, and W = 3, D = 3 line by line) and ``w4_d8_offset4``, the
+    catch-up's W and D on tables 4 bytes past a boundary (line by line)."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=device)
@@ -1490,6 +1735,10 @@ def merge_kernel_phase(torch, device, catch_up, cycles_per_ms) -> dict:
     cases = {"dense_catch_up_t300_t420": catch_up,
              "kernels_bench_s512_w4_d16": merge_random(torch, gen, 512, 4, 16),
              "random_s4099_w4_d8": merge_random(torch, gen, 4099, 4, 8)}
+    for w in ops.TEMPLATE_WAYS:
+        cases[f"w{w}_d8"] = merge_random(torch, gen, 4099, w, 8)
+    cases["w3_d3"] = merge_random(torch, gen, 4099, 3, 3)
+    cases["w4_d8_offset4"] = [copy_at(torch, t, 4) for t in merge_random(torch, gen, 4099, 4, 8)]
     res = {}
     for label, args in cases.items():
         got = ops.flic_merge(*args)
@@ -1507,15 +1756,22 @@ def merge_kernel_phase(torch, device, catch_up, cycles_per_ms) -> dict:
         nbytes, ops_n, info = merge_work(args)
         b_ms, b_by = bound(nbytes, ops_n)
         res[label] = dict(info, max_abs_err=float((got[3] - want[3]).abs().max()),
+                          plan=ops.merge_plan_for(*args)._asdict(),
                           ms=time_ms(torch, ops.flic_merge, fresh, cycles_per_ms),
+                          profiled_ms=profiled_ms(torch, ops.flic_merge, fresh, "flic_merge"),
                           plain_ms=time_ms(torch, ref.flic_merge_ref, fresh, cycles_per_ms),
                           bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops_n,
                           library_ms=None)
+    reached = {tuple(v["plan"].values()) for v in res.values()}
+    missing = [p for p in ops.merge_plans() if tuple(p) not in reached]
+    if missing or res["w4_d8_offset4"]["plan"]["vec"]:
+        raise AssertionError(f"flic_merge: no case reached the instantiations {missing}, or "
+                             "the offset tables took the 16-byte path")
     return res
 
 
 # ---------------------------------------------------------------------------
-# Phases 12-14: Mamba2-370M through the ssd_scan kernel.
+# Phases 13-15: Mamba2-370M through the ssd_scan kernel.
 # ---------------------------------------------------------------------------
 
 # Traffic: 4 prompts of 2,048 seeded tokens (8 chunks of 256), then 32
@@ -1897,6 +2153,8 @@ def main() -> None:
     emit("kernels", kernel=PAGED, spin_cycles_per_ms=cycles_per_ms, **pres)
     serve_replay_phase(torch, device)
     torch.cuda.empty_cache()
+    granite3 = granite3_serve_phase(torch, device)
+    torch.cuda.empty_cache()
 
     merge = merge_phase(torch, device, dense_cfg)
     mres = merge_kernel_phase(torch, device, merge.pop("args"), cycles_per_ms)
@@ -1927,8 +2185,9 @@ def main() -> None:
     lines.append({
         "name": PAGED, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{PAGED}.cu",
         "replaces": REPLACES[PAGED], "launches": serve["launches"],
-        "max_abs_err": max([serve["max_abs_err"]]
-                           + [v["max_abs_err"] for v in pres.values() if isinstance(v, dict)]),
+        "max_abs_err": max([serve["max_abs_err"], granite3["max_abs_err"]]
+                           + [v["max_abs_err"] for v in pres.values()
+                              if isinstance(v, dict) and "max_abs_err" in v]),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
     })

@@ -33,11 +33,22 @@
 //   a call is one launch.  With one split the block writes the output
 //   itself.
 // * Synchronous loads -> cp.async.  Each of the 4 warps takes sub-tiles of
-//   16 positions (w, w+4, ...) of its block's range and keeps up to 3 of
-//   them in flight in its own ring in shared memory (16-byte cp.async.cg,
-//   commit/wait groups): the next sub-tiles' rows are being copied while the
-//   current one is computed.  Warps synchronise only within themselves until
-//   the end, where the block merges the 4 warps' softmax states.
+//   16 positions (w, w+4, ...) of its block's range and keeps up to 2 of
+//   them in flight in its own ring in shared memory (commit/wait groups):
+//   the next sub-tiles' rows are being copied while the current one is
+//   computed.  Warps synchronise only within themselves until the end,
+//   where the block merges the 4 warps' softmax states.
+// * Any K/V row up to 512 bytes.  Rows of whole 16-byte chunks (whole
+//   k-steps of 16 values with the mma) on 16-byte aligned pages take the
+//   kWide instances: 16-byte cp.async.cg copies into a ring row of the same
+//   size.  Every other row takes the padded instances: a row of the ring is
+//   the K/V row padded with zeros to a 16-byte multiple (32 with the mma, a
+//   whole k-step), so ldmatrix, the swizzle and the mma see whole chunks; a
+//   zero lane adds 0 to every score and to an output column that is never
+//   written.  Their rows are copied in the widest unit that the row size
+//   and the pages' alignment allow (ops.py paged_row_plan): 16-byte
+//   cp.async.cg, 8- or 4-byte cp.async.ca, else ordinary 2-byte loads (a
+//   bf16 row of odd D).
 // * Two shared loads per multiply-add -> bf16 q over bf16 K: the (16
 //   positions x 8 heads) scores of a sub-tile are one mma.sync m16n8k16 per
 //   16 of D on the tensor cores, K read from shared memory by ldmatrix
@@ -68,7 +79,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16;            // positions of a sub-tile: the mma's M
 constexpr int kHeads = 4;            // query heads of a block (a head group)
 constexpr int kMaxStages = 2;        // sub-tiles a warp keeps in its ring
-constexpr int kMaxRowBytes = 512;    // D * bytes of a K/V value
+constexpr int kMaxRowBytes = 512;    // D * bytes of a K/V value (ops.py PAGED_MAX_ROW_BYTES)
 constexpr int kMaxSplitPages = 512;  // ops.py SPLIT_MAX_PAGES
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr float kMasked = -1e30f;
@@ -105,11 +116,46 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros.
+// 16, 8 or 4 bytes global -> shared, asynchronously; src_bytes 0 writes
+// zeros.  The 8- and 4-byte forms exist only as .ca.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// A 16-byte chunk of the ring from the `avail` bytes of a row that start at
+// src (none or fewer than 16 past the row's end: zeros there), in units of
+// `unit` bytes (16, 8, 4 or 2; src aligned to it).  `zero_src` is any valid
+// address, read by none of the zero-filling copies.
+__device__ __forceinline__ void copy_chunk(unsigned char* dst, const unsigned char* src,
+                                           int avail, int unit, const void* zero_src) {
+  if (unit == 16) {
+    cp_async16(dst, avail > 0 ? src : zero_src, avail > 0 ? 16 : 0);
+  } else if (unit == 8) {
+#pragma unroll
+    for (int o = 0; o < 16; o += 8) cp_async8(dst + o, o < avail ? src + o : zero_src, o < avail ? 8 : 0);
+  } else if (unit == 4) {
+#pragma unroll
+    for (int o = 0; o < 16; o += 4) cp_async4(dst + o, o < avail ? src + o : zero_src, o < avail ? 4 : 0);
+  } else {
+    uint16_t v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = 2 * k < avail ? *reinterpret_cast<const uint16_t*>(src + 2 * k) : uint16_t{0};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) reinterpret_cast<uint16_t*>(dst)[k] = v[k];
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -152,6 +198,13 @@ __device__ __forceinline__ uint32_t bf16_pair(const __nv_bfloat16* p) {
   return lo | (hi << 16);
 }
 
+// Values j and j + 1 of a bf16 row of d values as a pair (0 past the row).
+__device__ __forceinline__ uint32_t bf16_pair(const __nv_bfloat16* p, int j, int d) {
+  const uint32_t lo = j < d ? __bfloat16_as_ushort(p[j]) : 0u;
+  const uint32_t hi = j + 1 < d ? __bfloat16_as_ushort(p[j + 1]) : 0u;
+  return lo | (hi << 16);
+}
+
 // Two f32 values as bf16 pairs hi and lo with x ~= hi + lo (16 significant
 // bits of x kept; hi rounds x, lo rounds x - hi, which is exact in f32).
 __device__ __forceinline__ void bf16_split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
@@ -169,15 +222,22 @@ __device__ __forceinline__ int n_live_pages(int len, int page, int max_pages) {
   return n < max_pages ? n : max_pages;
 }
 
-// Shared-memory layout (bytes) of the split kernel.
+// Bytes of a row of the ring: the K/V row padded to whole 16-byte chunks,
+// or with the mma to whole k-steps of 32 bytes.
+__host__ __device__ inline int ring_row_bytes(int row_bytes, bool mma) {
+  const int a = mma ? 32 : 16;
+  return (row_bytes + a - 1) / a * a;
+}
+
+// Shared-memory layout (bytes) of the split kernel; prow: ring_row_bytes.
 struct Layout {
   int ring, pg, sp, alpha, ml, total;
 };
 
-__host__ __device__ inline Layout smem_layout(int row_bytes, int stages, int pps) {
+__host__ __device__ inline Layout smem_layout(int prow, int stages, int pps) {
   Layout o;
   o.ring = 0;                                                  // [warp][stage][K|V][row][chunk]
-  o.pg = o.ring + kWarps * stages * 2 * kRows * row_bytes;     // page ids of the split
+  o.pg = o.ring + kWarps * stages * 2 * kRows * prow;          // page ids of the split
   o.sp = o.pg + ((pps * 4 + 15) / 16) * 16;                    // [warp][row][head] scores, then P
   o.alpha = o.sp + kWarps * kRows * kHeads * 4;                // [warp][head]
   o.ml = o.alpha + kWarps * kHeads * 4;                        // [m|l][warp][head]
@@ -249,25 +309,35 @@ __device__ __forceinline__ void combine_if_last(
 
 // grid (Hkv * head groups, B, splits), kThreads threads; scale = 1/sqrt(D),
 // rounded on the host (a division here would be a call, and spill).
-// kSteps > 0: bf16 q over bf16 K/V with D % 16 == 0 and D <= 16 * kSteps,
-// scores and PV on the tensor cores; kSteps == 0: f32 multiply-adds on the
-// CUDA cores.
-template <typename TQ, typename TKV, int kSteps>
-__global__ void __launch_bounds__(kThreads, 3) paged_attention_split(
+// kSteps > 0: bf16 q over bf16 K/V with D <= 16 * kSteps, scores and PV on
+// the tensor cores; kSteps == 0: f32 multiply-adds on the CUDA cores.
+// kWide: rows of whole 16-byte chunks (with the mma, D % 16 == 0) on 16-byte
+// aligned pages, copied as they are; else zero-padded ring rows, copied in
+// units of `unit` bytes (16, 8, 4 or 2).
+// Blocks an SM the register budget is cut for: 3 (up to 170 registers a
+// thread), 2 for the 16-step mma with narrow copies (bf16 D > 128 on pages
+// off a 16-byte boundary, which no config serves), where 170 would spill.
+template <int kSteps, bool kWide>
+constexpr int kMinBlocks = kSteps == 16 && !kWide ? 2 : 3;
+
+template <typename TQ, typename TKV, int kSteps, bool kWide>
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<kSteps, kWide>)) paged_attention_split(
     const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
     const TKV* __restrict__ v_pages, const int32_t* __restrict__ table,
     const int32_t* __restrict__ lengths, TQ* __restrict__ out,
     float* __restrict__ part, int* __restrict__ arrivals, float scale, int hkv, int g,
-    int d, int page, int n_pool, int max_pages, int pps, int splits, int stages) {
+    int d, int page, int n_pool, int max_pages, int pps, int splits, int stages, int unit) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_last;
   constexpr bool kMma = kSteps > 0;
   constexpr int vec = 16 / static_cast<int>(sizeof(TKV));   // values in a 16-byte chunk
   const int row_bytes = d * static_cast<int>(sizeof(TKV));
-  const int cpr = row_bytes / 16;                           // chunks in a row, <= 32
+  const int prow = kWide ? row_bytes : ring_row_bytes(row_bytes, kMma);   // a ring row
+  const int cpr = prow / 16;                                // chunks in a ring row, <= 32
+  const int dp = kWide ? d : prow / static_cast<int>(sizeof(TKV));   // a row of s_acc
   const int rpp = min(32 / cpr, kRows);                     // rows a warp covers at once
   const int swz = min(cpr & -cpr, 8) - 1;                   // chunk swizzle mask
-  const Layout lay = smem_layout(row_bytes, stages, pps);
+  const Layout lay = smem_layout(prow, stages, pps);
   int* s_pg = reinterpret_cast<int*>(smem + lay.pg);
 
   const int n_hg = (g + kHeads - 1) / kHeads;
@@ -301,10 +371,11 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_split(
 #pragma unroll
     for (int ks = 0; ks < kSteps; ++ks) {
       qf[ks][0] = qf[ks][1] = 0u;
-      if (n < gb && ks * 16 < d) {
-        const TQ* qr = q_bh + n * d + ks * 16 + kk;
-        qf[ks][0] = bf16_pair(reinterpret_cast<const __nv_bfloat16*>(qr));
-        qf[ks][1] = bf16_pair(reinterpret_cast<const __nv_bfloat16*>(qr + 8));
+      if (n < gb && ks * 16 < dp) {
+        const auto* qr = reinterpret_cast<const __nv_bfloat16*>(q_bh + n * d);
+        const int j = ks * 16 + kk;
+        qf[ks][0] = kWide ? bf16_pair(qr + j) : bf16_pair(qr, j, d);
+        qf[ks][1] = kWide ? bf16_pair(qr + j + 8) : bf16_pair(qr, j + 8, d);
       }
     }
   } else {
@@ -312,7 +383,8 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_split(
     for (int gi = 0; gi < kHeads; ++gi)
 #pragma unroll
       for (int e = 0; e < vec; ++e)
-        qv[gi][e] = (gi < gb && rg < rpp) ? to_f32(q_bh[gi * d + c * vec + e]) : 0.0f;
+        qv[gi][e] = (gi < gb && rg < rpp && (kWide || c * vec + e < d))
+                        ? to_f32(q_bh[gi * d + c * vec + e]) : 0.0f;
   }
 
   const int n_pages = n_live_pages(len, page, max_pages);
@@ -342,13 +414,15 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_split(
   const int my_n = n_sub > warp ? (n_sub - warp + kWarps - 1) / kWarps : 0;
   const long long row_stride = static_cast<long long>(hkv) * d;   // between positions
   const long long head_off = static_cast<long long>(h) * d + c * vec;
-  const int tile_bytes = kRows * row_bytes;
+  const int avail0 = row_bytes - c * 16;   // bytes of a row from this lane's chunk on
+  const int tile_bytes = kRows * prow;
   unsigned char* ring = smem + lay.ring + warp * stages * 2 * tile_bytes;
   float* sp = reinterpret_cast<float*>(smem + lay.sp) + warp * kRows * kHeads;
   float* s_alpha = reinterpret_cast<float*>(smem + lay.alpha) + warp * kHeads;
 
   // This warp's i-th sub-tile into stage i % stages: lane (rg, c) copies
-  // chunk c of rows rg, rg + rpp, ...; rows past the split are zeros.
+  // chunk c of rows rg, rg + rpp, ...; rows past the split and the bytes
+  // past a K/V row are zeros.
   auto issue = [&](int i) {
     unsigned char* dk = ring + (i % stages) * 2 * tile_bytes;
     unsigned char* dv = dk + tile_bytes;
@@ -358,14 +432,25 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_split(
     int off = p - slot * page;
     for (int t = rg; t < kRows; t += rpp) {
       const int at = (t * cpr + (c ^ (t & swz))) * 16;
-      if (p < n_pos) {
-        const long long src =
-            (static_cast<long long>(s_pg[slot]) * page + off) * row_stride + head_off;
-        cp_async16(dk + at, k_pages + src, 16);
-        cp_async16(dv + at, v_pages + src, 16);
+      if constexpr (kWide) {
+        if (p < n_pos) {
+          const long long src =
+              (static_cast<long long>(s_pg[slot]) * page + off) * row_stride + head_off;
+          cp_async16(dk + at, k_pages + src, 16);
+          cp_async16(dv + at, v_pages + src, 16);
+        } else {
+          cp_async16(dk + at, k_pages, 0);
+          cp_async16(dv + at, v_pages, 0);
+        }
       } else {
-        cp_async16(dk + at, k_pages, 0);
-        cp_async16(dv + at, v_pages, 0);
+        const bool live = p < n_pos;
+        const long long src =
+            live ? (static_cast<long long>(s_pg[slot]) * page + off) * row_stride + head_off : 0;
+        const int avail = live ? avail0 : 0;
+        copy_chunk(dk + at, reinterpret_cast<const unsigned char*>(k_pages + src), avail, unit,
+                   k_pages);
+        copy_chunk(dv + at, reinterpret_cast<const unsigned char*>(v_pages + src), avail, unit,
+                   v_pages);
       }
       p += rpp;
       off += rpp;
@@ -412,7 +497,7 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_split(
       const int row = (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
       for (int ks = 0; ks < kSteps; ++ks) {
-        if (ks * 16 < d) {
+        if (ks * 16 < dp) {
           const int ch = 2 * ks + (lane >> 4);
           uint32_t a[4];
           ldmatrix_x4(a, sk + (row * cpr + (ch ^ (row & swz))) * 16);
@@ -503,7 +588,7 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_split(
       const int vrow = (lane & 7) + ((lane >> 4) & 1) * 8;
 #pragma unroll
       for (int mt = 0; mt < kSteps; ++mt) {
-        if (mt * 16 < d) {
+        if (mt * 16 < dp) {
           acc_t[mt][0] *= a0;
           acc_t[mt][1] *= a1;
           acc_t[mt][2] *= a0;
@@ -567,19 +652,19 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_split(
     const float mw = s_m[warp * kHeads + gi];
     return mw == -INFINITY ? 0.0f : expf(mw - mx);
   };
-  float* s_acc = reinterpret_cast<float*>(smem + lay.ring);   // [warp][head][d]
+  float* s_acc = reinterpret_cast<float*>(smem + lay.ring);   // [warp][head][dp]
   if constexpr (kMma) {
     const int gc = (lane & 3) * 2;
     if (gc < kHeads) {
       const float f0 = weight(gc), f1 = weight(gc + 1);
-      float* dst = s_acc + (warp * kHeads + gc) * d + (lane >> 2);
+      float* dst = s_acc + (warp * kHeads + gc) * dp + (lane >> 2);
 #pragma unroll
       for (int mt = 0; mt < kSteps; ++mt) {
-        if (mt * 16 < d) {
+        if (mt * 16 < dp) {
           dst[16 * mt] = acc_t[mt][0] * f0;
-          dst[d + 16 * mt] = acc_t[mt][1] * f1;
+          dst[dp + 16 * mt] = acc_t[mt][1] * f1;
           dst[16 * mt + 8] = acc_t[mt][2] * f0;
-          dst[d + 16 * mt + 8] = acc_t[mt][3] * f1;
+          dst[dp + 16 * mt + 8] = acc_t[mt][3] * f1;
         }
       }
     }
@@ -588,7 +673,7 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_split(
     for (int gi = 0; gi < kHeads; ++gi) {
       const float f = weight(gi);
 #pragma unroll
-      for (int e = 0; e < vec; ++e) s_acc[(warp * kHeads + gi) * d + c * vec + e] = acc[gi][e] * f;
+      for (int e = 0; e < vec; ++e) s_acc[(warp * kHeads + gi) * dp + c * vec + e] = acc[gi][e] * f;
     }
   }
   __syncthreads();
@@ -602,7 +687,7 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_split(
       const float mw = s_m[w * kHeads + gi];
       if (mw == -INFINITY) continue;   // a warp with no sub-tile
       l += s_l[w * kHeads + gi] * expf(mw - mx);
-      a += s_acc[(w * kHeads + gi) * d + dd];
+      a += s_acc[(w * kHeads + gi) * dp + dd];
     }
     if (splits == 1) {
       out[(pair * g + g0) * d + i] = from_f32<TQ>(__fdividef(a, fmaxf(l, 1e-37f)));
@@ -619,15 +704,20 @@ __global__ void __launch_bounds__(kThreads, 3) paged_attention_split(
     combine_if_last(part, arrivals, out, s_last, pair, g, g0, gb, d, n_pages, pps, splits);
 }
 
-template <typename TQ, typename TKV, int kSteps>
+template <typename TQ, typename TKV, int kSteps, bool kWide>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* table, const void* lengths, void* out, void* part,
            void* arrivals, int b, int hkv, int g, int d, int page, int n_pool,
-           int max_pages, int splits, int pps, cudaStream_t stream) {
+           int max_pages, int splits, int pps, int unit, cudaStream_t stream) {
   const int row_bytes = d * static_cast<int>(sizeof(TKV));
+  const int prow = kWide ? row_bytes : ring_row_bytes(row_bytes, kSteps > 0);
   const int n_hg = (g + kHeads - 1) / kHeads;
+  const auto addr = reinterpret_cast<uintptr_t>(k_pages) | reinterpret_cast<uintptr_t>(v_pages);
   if (b > 65535 || g <= 0 || d <= 0 || page <= 0 || max_pages <= 0 ||
-      row_bytes % 16 != 0 || row_bytes > kMaxRowBytes || splits <= 0 || splits > 65535 ||
+      row_bytes > kMaxRowBytes || prow > 16 * 2 * (kSteps > 0 ? kSteps : 16) ||
+      (kWide && (unit != 16 || row_bytes != ring_row_bytes(row_bytes, kSteps > 0))) ||
+      (unit != 16 && unit != 8 && unit != 4 && unit != 2) ||
+      row_bytes % unit != 0 || addr % unit != 0 || splits <= 0 || splits > 65535 ||
       pps <= 0 || pps > kMaxSplitPages || static_cast<long long>(splits) * pps < max_pages ||
       static_cast<long long>(splits - 1) * pps >= max_pages ||
       (splits > 1 && (part == nullptr || arrivals == nullptr)) ||
@@ -636,8 +726,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   // ring depth: the most sub-tiles a warp takes, at most kMaxStages
   const int subs = ((pps * page + kRows - 1) / kRows + kWarps - 1) / kWarps;
   const int stages = subs < kMaxStages ? subs : kMaxStages;
-  const int smem = smem_layout(row_bytes, stages, pps).total;
-  auto kernel = paged_attention_split<TQ, TKV, kSteps>;
+  const int smem = smem_layout(prow, stages, pps).total;
+  auto kernel = paged_attention_split<TQ, TKV, kSteps, kWide>;
   if (smem > kDefaultSmem) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -649,7 +739,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const int32_t*>(lengths), static_cast<TQ*>(out),
       static_cast<float*>(part), static_cast<int*>(arrivals),
       1.0f / std::sqrt(static_cast<float>(d)), hkv, g, d, page, n_pool, max_pages, pps, splits,
-      stages);
+      stages, unit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -657,8 +747,10 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 
 // q (B, Hkv, G, D) and out in bf16 if q_bf16 else f32; k_pages, v_pages
 // (P, page, Hkv, D) in bf16 if kv_bf16 else f32; page_table (B, max_pages)
-// and lengths (B,) int32.  All contiguous, K/V 16-byte aligned, D * (bytes
-// of a K/V value) a multiple of 16 and at most 512.  The dtype pairs:
+// and lengths (B,) int32.  All contiguous, D * (bytes of a K/V value) at
+// most 512.  `chunk` (16, 8, 4 or 2): the unit of the row copies, which
+// must divide the row's bytes and the K and V pages' addresses (ops.py
+// paged_row_plan picks the widest).  The dtype pairs:
 // bf16/bf16 (the model as served), f32 q over a bf16 pool (a float32 model:
 // the pool is always bf16), f32/f32 (the oracle's sweep).  Split plan:
 // `splits` ranges of `pps` page slots (at most 512) that cover max_pages,
@@ -670,19 +762,20 @@ extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages, const void* table,
     const void* lengths, void* out, void* part, void* arrivals, int b, int hkv,
     int g, int d, int page, int n_pool, int max_pages, int splits, int pps,
-    int q_bf16, int kv_bf16, void* stream) {
+    int q_bf16, int kv_bf16, int chunk, void* stream) {
   if (b <= 0 || hkv <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
 #define PAGED_ARGS q, k_pages, v_pages, table, lengths, out, part, arrivals, b, hkv, g, d, \
-                   page, n_pool, max_pages, splits, pps, s
-  if (q_bf16 && kv_bf16) {
-    if (d % 16 == 0) {
-      return d <= 128 ? launch<bf16, bf16, 8>(PAGED_ARGS) : launch<bf16, bf16, 16>(PAGED_ARGS);
-    }
-    return launch<bf16, bf16, 0>(PAGED_ARGS);
-  }
+                   page, n_pool, max_pages, splits, pps, chunk, s
+  // the kWide instances: 16-byte copies of rows that need no padding
+  const int row_bytes = d * (kv_bf16 ? 2 : 4);
+  const bool wide = chunk == 16 && row_bytes == ring_row_bytes(row_bytes, q_bf16 && kv_bf16);
+#define PAGED_LAUNCH(TQ, TKV, STEPS) \
+  (wide ? launch<TQ, TKV, STEPS, true>(PAGED_ARGS) : launch<TQ, TKV, STEPS, false>(PAGED_ARGS))
+  if (q_bf16 && kv_bf16) return d <= 128 ? PAGED_LAUNCH(bf16, bf16, 8) : PAGED_LAUNCH(bf16, bf16, 16);
   if (q_bf16) return static_cast<int>(cudaErrorInvalidValue);
-  return kv_bf16 ? launch<float, bf16, 0>(PAGED_ARGS) : launch<float, float, 0>(PAGED_ARGS);
+  return kv_bf16 ? PAGED_LAUNCH(float, bf16, 0) : PAGED_LAUNCH(float, float, 0);
+#undef PAGED_LAUNCH
 #undef PAGED_ARGS
 }

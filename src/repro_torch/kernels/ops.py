@@ -12,9 +12,11 @@ eight, ``flic_update`` ``data_ts``/``last_use``/``data``) and return those
 same tensors; the plain versions return new ones.  ``flic_merge``,
 ``paged_attention`` and ``ssd_scan`` allocate their outputs.
 
-``flic_insert`` and ``flic_lookup`` launch the instantiation of their
-kernel that ``insert_plan_for`` / ``lookup_plan_for`` pick from the
-arguments' shapes and alignment.
+``flic_insert``, ``flic_lookup`` and ``flic_merge`` launch the
+instantiation of their kernel that ``insert_plan_for`` /
+``lookup_plan_for`` / ``merge_plan_for`` pick from the arguments' shapes
+and alignment; ``paged_attention`` copies K/V rows in the unit that
+``paged_row_plan`` picks.
 
 ``LAUNCHES[name]`` counts the calls that launched kernel ``name``.
 """
@@ -239,11 +241,54 @@ def flic_lookup(tags, data_ts, valid, data, keys, sidx):
     return hit, ts, payload, way
 
 
+class MergePlan(NamedTuple):
+    """An instantiation of the ``flic_merge`` kernel.  ``ways``: the
+    compile-time W, or 0 for the S * W lines taken one by one (any W);
+    ``vec``: 16-byte metadata rows and payload chunks."""
+    ways: int
+    vec: bool
+
+
+def merge_plan(w: int, d: int, aligned: bool) -> MergePlan:
+    """The instantiation for W ways, D payload floats and ``aligned`` (all
+    twelve tables start on 16-byte boundaries): 16-byte accesses at
+    compile-time W where aligned, D % 4 == 0 and W is in
+    ``TEMPLATE_WAYS``; else the lines one by one, in 4-byte words."""
+    if aligned and d % 4 == 0 and w in TEMPLATE_WAYS:
+        return MergePlan(w, True)
+    return MergePlan(0, False)
+
+
+def merge_plans() -> list[MergePlan]:
+    """Every instantiation of the kernel (what ``merge_plan`` can return)."""
+    return sorted({MergePlan(w, True) for w in TEMPLATE_WAYS} | {MergePlan(0, False)})
+
+
+def merge_plan_for(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b) -> MergePlan:
+    """The instantiation ``flic_merge`` launches for these arguments:
+    aligned where the eight inputs are (its outputs are fresh, aligned)."""
+    return merge_plan(tags_a.shape[-1], data_a.shape[-1],
+                      _aligned(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b))
+
+
+MERGE_SETS_PER_BLOCK = 16
+MERGE_BLOCKS_PER_SM = 24
+
+
+def merge_blocks(n_sets: int, n_sms: int) -> int:
+    """Grid of ``flic_merge`` for ``n_sets`` sets of its plan (the lines,
+    for ``ways`` 0): one-warp blocks of ``MERGE_SETS_PER_BLOCK`` sets, so
+    that a small merge spreads over as many SMs as it has warps; at most
+    ``MERGE_BLOCKS_PER_SM`` blocks an SM, which walk the rest by a grid
+    stride."""
+    return max(1, min(-(-n_sets // MERGE_SETS_PER_BLOCK), MERGE_BLOCKS_PER_SM * n_sms))
+
+
 def flic_merge(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b):
     """Newest-timestamp-wins merge of two aligned cache shards; see
     ``ref.flic_merge_ref``.  ``(S, W)`` int32 tags and timestamps, bool
-    valid flags, ``(S, W, D)`` float32 payloads; any S.  Returns new
-    (tags, ts, valid, data)."""
+    valid flags, ``(S, W, D)`` float32 payloads; any S, W and D.  Returns
+    new (tags, ts, valid, data)."""
     if not _on_cuda(tags_a):
         return ref.flic_merge_ref(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b)
     s, w = tags_a.shape
@@ -255,12 +300,13 @@ def flic_merge(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b):
         data_a=(data_a, F32, pay), tags_b=(tags_b, I32, tab), ts_b=(ts_b, I32, tab),
         valid_b=(valid_b, BOOL, tab), data_b=(data_b, F32, pay),
     )
-    out = (torch.empty_like(tags_a), torch.empty_like(ts_a), torch.empty_like(valid_a),
-           torch.empty_like(data_a))
+    args = (tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b)
+    plan = merge_plan_for(*args)
+    out = tuple(torch.empty_like(t) for t in args[:4])
+    sets = s if plan.ways else s * w
     _launch(
-        "flic_merge", tags_a.device,
-        (tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b, *out),
-        (s, w, d),
+        "flic_merge", tags_a.device, (*args, *out),
+        (s, w, d, plan.ways, int(plan.vec), merge_blocks(sets, sm_count(tags_a.device))),
     )
     return out
 
@@ -296,18 +342,59 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-_ARRIVALS: dict[int, torch.Tensor] = {}
+# The paged_attention kernel's arrival counters, by (device index, stream).
+_ARRIVALS: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _arrivals(device, n: int) -> torch.Tensor:
+def _arrivals(device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` int32 arrival counters of the ``paged_attention``
-    kernel on ``device``, zero between calls (each call leaves them at 0);
-    allocated once and grown when a call needs more."""
-    index = device.index or 0
-    buf = _ARRIVALS.get(index)
+    kernel for calls on ``stream`` (a stream handle, or any key) of
+    ``device``, zero between calls (each call leaves them at 0); allocated
+    once for each stream and grown when a call needs more.  Calls on one
+    stream run one after another, so they share a buffer; calls on two
+    streams may overlap, so they never do."""
+    key = (device.index or 0, stream)
+    buf = _ARRIVALS.get(key)
     if buf is None or buf.numel() < n:
-        buf = _ARRIVALS[index] = torch.zeros(max(n, 4096), dtype=I32, device=device)
+        buf = _ARRIVALS[key] = torch.zeros(max(n, 4096), dtype=I32, device=device)
     return buf
+
+
+PAGED_MAX_ROW_BYTES = 512
+
+
+def _ptr_align(*tensors) -> int:
+    """The largest power of two up to 16 that divides every address."""
+    addr = 16
+    for t in tensors:
+        addr |= t.data_ptr()
+    return addr & -addr
+
+
+def paged_row_plan(d: int, itemsize: int, ptr_align: int) -> int:
+    """The unit, in bytes, in which ``paged_attention`` copies a K/V row of
+    D values of ``itemsize`` bytes from pages whose addresses are multiples
+    of ``ptr_align``: the largest of 16 (``cp.async.cg``), 8, 4
+    (``cp.async.ca``) and 2 (ordinary loads) that divides both the row's
+    bytes and ``ptr_align`` (every row starts a multiple of its own size
+    past the pages' start).  Rows above ``PAGED_MAX_ROW_BYTES`` (D > 256 in
+    bfloat16, D > 128 in float32; no config of the repo has one) are
+    refused: the kernel keeps a sub-tile's rows in shared memory and a
+    lane's share of a row in registers."""
+    row = d * itemsize
+    if not 0 < row <= PAGED_MAX_ROW_BYTES:
+        raise ValueError(f"K/V rows of {row} bytes: the kernel takes 1 to "
+                         f"{PAGED_MAX_ROW_BYTES} bytes")
+    unit = 16
+    while row % unit or ptr_align % unit:
+        unit //= 2
+    return unit
+
+
+def paged_row_plan_for(q, k_pages, v_pages, page_table, lengths) -> int:
+    """The unit of the row copies ``paged_attention`` makes for these
+    arguments (``paged_row_plan`` of their D, K/V dtype and alignment)."""
+    return paged_row_plan(q.shape[-1], k_pages.element_size(), _ptr_align(k_pages, v_pages))
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths):
@@ -317,14 +404,14 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
     bfloat16 or float32 (K and V alike; on CUDA not a bfloat16 ``q`` over
     float32 pages), ``page_table`` (B, max_pages) and ``lengths`` (B,)
     int32.  Returns (B, Hkv, G, D) in ``q``'s dtype.
-    On CUDA, D * (bytes of a K/V value) must be a multiple of 16 and at most
-    512 (the kernel reads K/V in 16-byte chunks, a lane's chunk of a row),
-    every page id must lie in [0, P) (a (sequence, head) with one outside
-    gets NaN), and B <= 65,535.  The kernel splits each sequence's page
-    slots over blocks (``paged_split_plan``); the last split of a (sequence,
-    head) to finish merges the splits' partial softmax states in split
-    order, counted in on counters that this module keeps per device, so two
-    calls on one device must not run at once on two streams.
+    On CUDA, a K/V row (D * bytes of a value) must be at most 512 bytes
+    (``paged_row_plan``, which also picks the unit of the row copies from
+    the row's size and the pages' alignment), every page id must lie in
+    [0, P) (a (sequence, head) with one outside gets NaN), and B <= 65,535.
+    The kernel splits each sequence's page slots over blocks
+    (``paged_split_plan``); the last split of a (sequence, head) to finish
+    merges the splits' partial softmax states in split order, counted in on
+    counters that this module keeps for each stream (``_arrivals``).
     """
     if not _on_cuda(q):
         return ref.paged_attention_ref(q, k_pages, v_pages, page_table, lengths)
@@ -341,10 +428,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
         v_pages=(v_pages, k_pages.dtype, kv), page_table=(page_table, I32, (b, max_pages)),
         lengths=(lengths, I32, (b,)),
     )
-    row_bytes = d * k_pages.element_size()
-    if row_bytes % 16 or row_bytes > 512 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("K/V rows must be 16-byte multiples of at most 512 bytes on 16-byte "
-                         "aligned storage")
+    chunk = paged_row_plan_for(q, k_pages, v_pages, page_table, lengths)
     if b > 65_535:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit of 65,535")
     if max_pages == 0:
@@ -354,12 +438,13 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
     part = arrivals = None
     if splits > 1:
         part = torch.empty(b * hkv * splits * g * (d + 2), dtype=F32, device=q.device)
-        arrivals = _arrivals(q.device, b * hkv * -(-g // 4))
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        arrivals = _arrivals(q.device, stream, b * hkv * -(-g // 4))
     _launch(
         "paged_attention", q.device,
         (q, k_pages, v_pages, page_table, lengths, out, part, arrivals),
         (b, hkv, g, d, page, n_pool, max_pages, splits, per, int(q.dtype == BF16),
-         int(k_pages.dtype == BF16)),
+         int(k_pages.dtype == BF16), chunk),
     )
     return out
 

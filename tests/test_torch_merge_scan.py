@@ -159,3 +159,65 @@ def test_wrappers_refuse_other_devices():
     t = torch.empty((4, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flic_merge(t, t, t.bool(), t.float()[..., None], t, t, t.bool(), t.float()[..., None])
+
+
+# The instantiation of the flic_merge kernel (ops.merge_plan): 16-byte
+# accesses at compile-time W only on aligned tables with D % 4 == 0.
+
+MERGE_PLANS = {
+    "w4_d8_aligned": ((4, 8, True), ops.MergePlan(4, True)),
+    "w4_d8_offset": ((4, 8, False), ops.MergePlan(0, False)),
+    "w4_d6_aligned": ((4, 6, True), ops.MergePlan(0, False)),
+    "w3_d8_aligned": ((3, 8, True), ops.MergePlan(0, False)),
+    "w1_d4_aligned": ((1, 4, True), ops.MergePlan(1, True)),
+    "w2_d16_aligned": ((2, 16, True), ops.MergePlan(2, True)),
+    "w8_d8_aligned": ((8, 8, True), ops.MergePlan(8, True)),
+    "w8_d3_aligned": ((8, 3, True), ops.MergePlan(0, False)),
+}
+
+
+def _offset(t, aligned):
+    """``t`` itself, or a contiguous copy 4 bytes past a 16-byte boundary."""
+    if aligned:
+        return t
+    skip = 4 // t.element_size()
+    buf = torch.zeros(t.numel() + skip, dtype=t.dtype)
+    view = buf[skip:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("case", list(MERGE_PLANS))
+def test_merge_plan_picks_the_instantiation(case):
+    (w, d, aligned), want = MERGE_PLANS[case]
+    assert ops.merge_plan(w, d, aligned) == want
+    assert want in ops.merge_plans()
+    a, b = _merge_inputs(np.random.default_rng(w * 10 + d), 40, w, d)
+    args = [_offset(torch.from_numpy(x), aligned) for x in a + b]
+    assert all(t.data_ptr() % 16 == 0 for t in args) == aligned
+    assert ops.merge_plan_for(*args) == want
+    # one table off a boundary is enough to take the line-by-line path
+    for i in range(8):
+        mixed = list(args)
+        mixed[i] = _offset(torch.from_numpy((a + b)[i]), False)
+        assert ops.merge_plan_for(*mixed) == ops.MergePlan(0, False)
+    # the wrapper on CPU tensors gives the plain result whatever the plan
+    _assert_merge_equal(ops.flic_merge(*args), [t.numpy() for t in ref.flic_merge_ref(*args)])
+
+
+def test_merge_plans_stay_within_the_instantiations():
+    plans = set(ops.merge_plans())
+    assert len(plans) == 5
+    for w in range(1, 41):
+        for d in range(0, 17):
+            for aligned in (False, True):
+                plan = ops.merge_plan(w, d, aligned)
+                assert plan in plans
+                assert plan.vec == (aligned and d % 4 == 0 and w in ops.TEMPLATE_WAYS)
+
+
+@pytest.mark.parametrize("n_sets,blocks", [(1, 1), (0, 1), (16, 1), (17, 2), (50_000, 3125),
+                                           (100_000, 3168), (10**8, 3168)])
+def test_merge_grid_follows_the_sm_count(n_sets, blocks):
+    """One-warp blocks of 16 sets, at most 24 an SM of an H100."""
+    assert ops.merge_blocks(n_sets, 132) == blocks

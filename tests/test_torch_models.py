@@ -68,6 +68,23 @@ def test_granite_configs_equal_jax(getter):
     assert tcfg.resolved_head_dim == jcfg.resolved_head_dim
 
 
+@pytest.mark.parametrize("getter", ["get_arch", "get_smoke_arch"])
+def test_granite3_configs_equal_jax(getter):
+    """``configs/granite_3_8b.py`` against JAX's, field by field."""
+    jcfg = getattr(jconfig, getter)("granite_3_8b")
+    tcfg = getattr(tconfig, getter)("granite_3_8b")
+    for field in dataclasses.fields(jcfg):
+        assert getattr(tcfg, field.name) == getattr(jcfg, field.name), field.name
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.resolved_head_dim == jcfg.resolved_head_dim == (128 if getter == "get_arch" else 12)
+
+
+def test_full_granite3_defs_count_equals_jax():
+    jcfg, tcfg = jconfig.get_arch("granite_3_8b"), tconfig.get_arch("granite_3_8b")
+    want = jparams_mod.param_count(jmodel.model_param_defs(jcfg))
+    assert param_count(tmodel.model_param_defs(tcfg)) == want == 8_372_187_136
+
+
 def test_full_granite_defs_equal_jax_and_count_8_25b():
     jcfg = jconfig.get_arch("granite_8b")
     tcfg = tconfig.get_arch("granite_8b")

@@ -3,7 +3,8 @@
 ``tests/test_kernels.py``'s sweep shapes in bfloat16 and float32, with
 ragged lengths, length 1, permuted page tables and inactive-slot rows.
 
-Also the kernel's split over the KV length: ``ops.paged_split_plan``
+Also the unit of the kernel's K/V row copies (``ops.paged_row_plan``),
+the kernel's split over the KV length: ``ops.paged_split_plan``
 covers every page slot once and fills the card, and the rule by which the
 kernel merges the splits' partial softmax states, written here in plain
 torch, gives the plain version's result.
@@ -22,7 +23,11 @@ from repro.kernels import ref as jref
 from repro.kernels.paged_attention import paged_attention_pallas
 from repro_torch.kernels import ops, ref
 
-SWEEP = [(2, 2, 4, 64, 16, 32, 6), (1, 4, 1, 128, 8, 16, 4), (4, 1, 8, 32, 32, 64, 3)]
+# (B, Hkv, G, D, page, pool pages, page slots): tests/test_kernels.py's sweep,
+# then K/V rows that are not 16-byte multiples in bfloat16: D = 12 at the
+# Granite-3 smoke model's Hkv, G and page, and an odd D = 13.
+SWEEP = [(2, 2, 4, 64, 16, 32, 6), (1, 4, 1, 128, 8, 16, 4), (4, 1, 8, 32, 32, 64, 3),
+         (3, 2, 2, 12, 8, 24, 5), (2, 2, 3, 13, 16, 20, 4)]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
@@ -200,3 +205,63 @@ def test_split_and_combine_matches_plain(shape, kind, per):
     got = _split_and_combine(q, kp, vp, table, lengths, splits, per)
     want = ref.paged_attention_ref(q, kp, vp, table, lengths)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# The unit of the kernel's K/V row copies (ops.paged_row_plan): the widest
+# of 16, 8, 4 and 2 bytes that divides the row and the pages' alignment.
+
+ROW_UNITS = {   # (D, bytes of a value) -> unit at 16-, 8- and 4-byte alignment
+    (12, 2): (8, 8, 4), (13, 2): (2, 2, 2), (16, 2): (16, 8, 4), (20, 2): (8, 8, 4),
+    (64, 2): (16, 8, 4), (128, 2): (16, 8, 4), (256, 2): (16, 8, 4),
+    (12, 4): (16, 8, 4), (13, 4): (4, 4, 4), (16, 4): (16, 8, 4), (20, 4): (16, 8, 4),
+    (64, 4): (16, 8, 4), (128, 4): (16, 8, 4),
+}
+
+
+@pytest.mark.parametrize("align", [16, 8, 4])
+@pytest.mark.parametrize("d,itemsize", sorted(ROW_UNITS))
+def test_row_plan_takes_the_widest_unit(d, itemsize, align):
+    unit = ops.paged_row_plan(d, itemsize, align)
+    assert unit == ROW_UNITS[d, itemsize][(16, 8, 4).index(align)]
+    assert (d * itemsize) % unit == 0 and align % unit == 0
+
+
+@pytest.mark.parametrize("d,itemsize", [(257, 2), (129, 4), (256, 4), (0, 2)])
+def test_row_plan_refuses_rows_past_512_bytes(d, itemsize):
+    with pytest.raises(ValueError, match="K/V rows"):
+        ops.paged_row_plan(d, itemsize, 16)
+
+
+@pytest.mark.parametrize("offset", [0, 2, 4, 8])
+def test_row_plan_for_reads_the_pages_alignment(offset):
+    """The wrapper's plan follows the pages' addresses: a view ``offset``
+    bytes past a 16-byte boundary takes the unit that offset allows."""
+    d, page, hkv = 12, 8, 2
+    q = torch.zeros((1, hkv, 2, d), dtype=torch.bfloat16)
+    base = torch.zeros(4 * page * hkv * d + 8, dtype=torch.bfloat16)
+    assert base.data_ptr() % 16 == 0
+    kv = base[offset // 2: offset // 2 + 4 * page * hkv * d].view(4, page, hkv, d)
+    table, lengths = torch.zeros((1, 2), dtype=torch.int32), torch.ones(1, dtype=torch.int32)
+    want = {0: 8, 2: 2, 4: 4, 8: 8}[offset]
+    assert ops.paged_row_plan_for(q, kv, kv, table, lengths) == want
+    aligned = torch.zeros((4, page, hkv, d), dtype=torch.bfloat16)
+    assert ops.paged_row_plan_for(q, aligned, kv, table, lengths) == want
+
+
+# The kernel's arrival counters: one buffer for each (device, stream).
+
+def test_arrival_counters_are_kept_per_stream(monkeypatch):
+    """Stream keys stand in for CUDA stream handles (no stream exists on
+    the CPU): one key, one buffer, grown in place of the old; two keys, two
+    buffers; each zero when made."""
+    monkeypatch.setattr(ops, "_ARRIVALS", {})
+    cpu = torch.device("cpu")
+    a = ops._arrivals(cpu, 11, 10)
+    assert a is ops._arrivals(cpu, 11, 100) and a.numel() >= 100
+    b = ops._arrivals(cpu, 22, 10)
+    assert b is not a and b.data_ptr() != a.data_ptr()
+    assert int(a.abs().sum()) == int(b.abs().sum()) == 0
+    big = ops._arrivals(cpu, 11, 10_000)
+    assert big is not a and big.numel() >= 10_000 and ops._arrivals(cpu, 11, 5) is big
+    assert ops._arrivals(cpu, 22, 5) is b
+    assert set(ops._ARRIVALS) == {(0, 11), (0, 22)}

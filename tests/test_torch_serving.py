@@ -1,5 +1,6 @@
 """The port's serving path against the JAX package's, on Granite-8B's smoke
-config with the same weights (``params_from_numpy``).
+config with the same weights (``params_from_numpy``), and Granite-3-8B's
+(head size 12: K/V rows of 24 bytes in bfloat16) through its own fixture.
 
 * Float32 weights, where the point is the engine's algorithm: the same
   finished requests, tokens, prefix reuse and page-manager stats, and
@@ -26,7 +27,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_parity import SERVE_FIXTURE, jax_serve_run, serve_fixture, serve_prompts
+from torch_parity import SERVE_FIXTURE, SERVE_FIXTURES, jax_serve_run, serve_fixture, serve_prompts
 
 from repro import config as jconfig
 from repro.models import model as jmodel
@@ -114,9 +115,8 @@ def test_prefix_reuse_and_spill_stats_equal_jax():
     assert [r.reused_prefill for r in teng.finished] == [r.reused_prefill for r in jeng.finished]
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_fixture_replays_on_cpu(case):
-    cfg, params, cases = load_serve_replay(SERVE_FIXTURE, "cpu")
+def _replays_on_cpu(path, case):
+    cfg, params, cases = load_serve_replay(path, "cpu")
     c = cases[case]
     res = compare_case(c, replay_case(cfg, params, c, "cpu"), BF16_TOL)
     assert res["max_abs_diff"] <= BF16_TOL, res
@@ -124,11 +124,25 @@ def test_fixture_replays_on_cpu(case):
     assert res["reused_equal"] and res["stats_equal"], res
     if case == "tight":  # eviction, spill and fetch from the store all ran
         assert c["stats"]["evict"] > 0 and c["stats"]["fetch_bytes"] > 0
+    return cfg
 
 
-def test_committed_serve_fixture_equals_regenerated():
-    jcfg, flat, cases = serve_fixture()
-    with np.load(SERVE_FIXTURE) as z:
+@pytest.mark.parametrize("case", CASES)
+def test_fixture_replays_on_cpu(case):
+    _replays_on_cpu(SERVE_FIXTURE, case)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_granite3_fixture_replays_on_cpu(case):
+    """JAX's Granite-3-8B smoke run, teacher-forced, to ``BF16_TOL``."""
+    cfg = _replays_on_cpu(SERVE_FIXTURES["granite_3_8b"], case)
+    assert cfg.name == "granite3-smoke" and cfg.resolved_head_dim == 12
+
+
+def _regenerates(arch):
+    path = SERVE_FIXTURES[arch]
+    jcfg, flat, cases = serve_fixture(arch)
+    with np.load(path) as z:
         committed = {k: z[k] for k in z.files}
     assert json.loads(str(committed.pop("config"))) == dataclasses.asdict(jcfg)
     for k, a in flat.items():
@@ -138,7 +152,15 @@ def test_committed_serve_fixture_equals_regenerated():
             np.testing.assert_array_equal(committed.pop(f"{name}.{k}"), np.asarray(v),
                                           err_msg=f"{name}.{k}")
     assert not committed
-    assert os.path.getsize(SERVE_FIXTURE) < 300_000
+    assert os.path.getsize(path) < 300_000
+
+
+def test_committed_serve_fixture_equals_regenerated():
+    _regenerates("granite_8b")
+
+
+def test_committed_granite3_fixture_equals_regenerated():
+    _regenerates("granite_3_8b")
 
 
 def test_engine_matches_contiguous_decode():

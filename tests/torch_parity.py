@@ -12,7 +12,8 @@ Not a test module: it imports both packages, which only tests may do.
 * ``jax_series``/``jax_state_arrays`` flatten JAX results to numpy.
 * ``replay_fixture_arrays``/``write_replay_fixture`` build the committed
   replay files that ``chip_smoke.py`` runs on the card;
-  ``serve_fixture``/``write_serve_fixture`` the serving one;
+  ``serve_fixture``/``write_serve_fixture`` the serving ones (Granite-8B's
+  and Granite-3-8B's smoke configs);
   ``ssm_fixture``/``write_ssm_fixture`` the Mamba2 one (``jax_ssm_run``).
 """
 from __future__ import annotations
@@ -240,7 +241,11 @@ def write_replay_fixture(case: str, directory: str = FIXTURE_DIR) -> str:
 # Serving: the JAX engine's run on Granite-8B's smoke config, as a fixture.
 # ---------------------------------------------------------------------------
 
-SERVE_FIXTURE = os.path.join(FIXTURE_DIR, "serve_granite8b_smoke.npz")
+SERVE_FIXTURES = {   # arch -> its committed serve fixture
+    "granite_8b": os.path.join(FIXTURE_DIR, "serve_granite8b_smoke.npz"),
+    "granite_3_8b": os.path.join(FIXTURE_DIR, "serve_granite3_smoke.npz"),
+}
+SERVE_FIXTURE = SERVE_FIXTURES["granite_8b"]
 
 
 def jax_serve_run(jcfg, jparams, prompts, max_new, **engine_kw):
@@ -297,9 +302,9 @@ def serve_prompts(vocab: int, n: int, length: int, seed: int, repeat: int = 2):
     return uniq * repeat
 
 
-def serve_fixture() -> tuple:
-    """(JAX config, flat numpy params, cases) of the committed serve fixture:
-    Granite-8B's smoke config in bfloat16 (the path as served), weights
+def serve_fixture(arch: str = "granite_8b") -> tuple:
+    """(JAX config, flat numpy params, cases) of the committed serve fixture
+    of ``arch``: its smoke config in bfloat16 (the path as served), weights
     from ``PRNGKey(0)``.  ``main``: 4 prompts of 16 tokens (whole pages),
     each submitted twice, max_batch 2, page 8, 6 new tokens, so the second
     wave reuses the first's pages.  ``tight``: a 5-page pool (4 usable) and
@@ -308,7 +313,7 @@ def serve_fixture() -> tuple:
     from repro.config import get_smoke_arch
     from repro.models import init_model
 
-    jcfg = get_smoke_arch("granite_8b")
+    jcfg = get_smoke_arch(arch)
     jparams = init_model(jax.random.PRNGKey(0), jcfg)
     flat = {"/".join(k.key for k in path): np.asarray(v)
             for path, v in jax.tree_util.tree_flatten_with_path(jparams)[0]}
@@ -323,11 +328,12 @@ def serve_fixture() -> tuple:
     return jcfg, flat, cases
 
 
-def write_serve_fixture(path: str = SERVE_FIXTURE) -> str:
+def write_serve_fixture(arch: str = "granite_8b") -> str:
     from repro_torch.config import ModelConfig
     from repro_torch.models.replay import save_model_replay
 
-    jcfg, flat, cases = serve_fixture()
+    path = SERVE_FIXTURES[arch]
+    jcfg, flat, cases = serve_fixture(arch)
     save_model_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), flat, cases)
     return path
 
@@ -398,5 +404,6 @@ def write_ssm_fixture(path: str = SSM_FIXTURE) -> str:
 if __name__ == "__main__":
     for name in FIXTURE_CASES:
         print(write_replay_fixture(name))
-    print(write_serve_fixture())
+    for arch in SERVE_FIXTURES:
+        print(write_serve_fixture(arch))
     print(write_ssm_fixture())
