@@ -23,15 +23,30 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    the median time of 20 runs of each, the card's time bound for the bytes
    that those inputs need, and ``launch_floor_ms``, the time of an empty
    launch (``torch.cuda._sleep(0)``) under the same timing;
-4. ``replay``: the committed JAX replays (``src/repro_torch/testdata``)
-   through ``run_sim`` with the kernels; the ``TickMetrics`` series must
-   equal JAX's bitwise;
+4. ``replay``: the committed JAX replays (``src/repro_torch/testdata``:
+   all 17 conformance cases at seeds 0 and 1) through ``run_sim`` with the
+   kernels; each ``TickMetrics`` series must equal JAX's bitwise, each run
+   must launch ``flic_insert``, ``flic_update`` where the workload is
+   mutable and ``flic_lookup`` where the probe is dense, and all three must
+   have launched across the replays;
 5. ``dense``: the main path, N=1,000 nodes, dense gossip, the ``zipf_hot``
    workload (the coherence sweep is live), Gilbert-Elliott loss and a store
    outage, 600 ticks, with the kernels and with the inline path; the two
    series must be equal and each kernel must have launched;
 6. ``city``: the paper's stream at N=10,000 nodes with fan-out 32, 120
    ticks, with the kernels and with the inline path; equal series;
+6a. ``replicate``: the dense cell's shape on the paper's stream under the
+   replicate policy (every hearer upserts every row; Bernoulli loss 0.1),
+   30 ticks: ``flic_insert`` once per broadcast row (N a tick) and once for
+   the fills, ``flic_lookup`` once a tick; equal series;
+6b. ``poisson``: the dense cell under Poisson arrivals (rate 1, 4 write
+   lanes a node), Gilbert-Elliott loss, an outage (150, 60), 300 ticks;
+   ``flic_insert`` 5, ``flic_update`` 4 and ``flic_lookup`` 1 a tick;
+6c. ``trace``: the dense cell replaying the ``trace_ycsb`` trace (T = 600,
+   half reads, zipf 0.99) with the same loss and outage, 300 ticks; the
+   trace on the card must equal ``materialize_trace``'s numpy arrays;
+6d. ``reference``: the reference engine (``run_any_engine(engine=
+   "reference")``) on every seed-0 replay, bitwise equal to JAX's series;
 7. ``serve``: the second main path, Granite-8B at full width (random
    bfloat16 weights from seed 0) serving 8 requests (4 prompts of 512
    tokens, each twice, 32 new tokens, 4 slots, page 16) through
@@ -93,8 +108,9 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     bfloat16) through the port with the kernel, teacher-forced, within the
     CPU tests' tolerances.
 
-After ``dense`` and ``city`` a ``profile`` line checks that a tick never
-synchronises the host and says where its time goes on the card.
+After each engine cell (``dense``, ``city``, ``replicate``, ``poisson``,
+``trace``) a ``profile`` line checks that a tick never synchronises the host
+and says where its time goes on the card.
 
 Then one line lists every kernel with its numbers, one line holds
 ``nvidia-smi``'s name and power limit, and the last line is
@@ -597,24 +613,38 @@ def coverage_cases(torch, device) -> dict:
     return {"flic_insert": insert, "flic_lookup": lookup}
 
 
-def kernel_phase(torch, device, dense_cfg, city_cfg, cycles_per_ms) -> dict:
+def kernel_phase(torch, device, cfgs, cycles_per_ms) -> dict:
     """Each kernel on the inputs the main path gives it (copied from one
-    tick of each cell: dense tick 200, before the outage; city tick 60) and
-    on arbitrary states; bitwise against the plain version, timed, bound.
-    The first main-path case of each kernel is its headline.  For
-    ``flic_insert`` and ``flic_lookup`` also every instantiation
+    tick of each cell: dense tick 200, before the outage; city tick 60;
+    replicate tick 20, row 500; poisson and trace tick 100, before their
+    outage) and on arbitrary states; bitwise against the plain version,
+    timed, bound.  The first main-path case of each kernel is its headline.
+    For ``flic_insert`` and ``flic_lookup`` also every instantiation
     (``coverage_cases``, which must reach each of ``ops.row_plans``)."""
     from repro_torch.kernels import ops
 
-    dense = capture_main_path(torch, device, dense_cfg, 201, {
+    dense = capture_main_path(torch, device, cfgs["dense"], 201, {
         "flic_update": (200,), "flic_lookup": (200,), "flic_insert": (400,)})
-    city = capture_main_path(torch, device, city_cfg, 61, {"flic_insert": (120, 121)})
+    city = capture_main_path(torch, device, cfgs["city"], 61, {"flic_insert": (120, 121)})
+    n_rep = cfgs["replicate"].n_nodes + 1          # insert calls a replicate tick
+    rep = capture_main_path(torch, device, cfgs["replicate"], 21, {
+        "flic_insert": (20 * n_rep + 500,), "flic_lookup": (20,)})
+    poi = capture_main_path(torch, device, cfgs["poisson"], 101, {
+        "flic_insert": (100 * 5 + 2,), "flic_update": (100 * 4 + 1,)})
+    trc = capture_main_path(torch, device, cfgs["trace"], 101, {
+        "flic_lookup": (100,), "flic_update": (100,)})
     cases = {
         "flic_insert": {"city_t60_writes": city["flic_insert", 120],
                         "city_t60_fills": city["flic_insert", 121],
-                        "dense_t200_writes": dense["flic_insert", 400]},
-        "flic_update": {"dense_t200": dense["flic_update", 200]},
-        "flic_lookup": {"dense_t200": dense["flic_lookup", 200]},
+                        "dense_t200_writes": dense["flic_insert", 400],
+                        "replicate_t20_row500": rep["flic_insert", 20 * n_rep + 500],
+                        "poisson_t100_wave2": poi["flic_insert", 100 * 5 + 2]},
+        "flic_update": {"dense_t200": dense["flic_update", 200],
+                        "poisson_t100_wave1": poi["flic_update", 100 * 4 + 1],
+                        "trace_t100": trc["flic_update", 100]},
+        "flic_lookup": {"dense_t200": dense["flic_lookup", 200],
+                        "replicate_t20": rep["flic_lookup", 20],
+                        "trace_t100": trc["flic_lookup", 100]},
     }
     for more in (random_cases(torch, device), coverage_cases(torch, device)):
         for name, by_label in more.items():
@@ -661,7 +691,21 @@ def timed_run(torch, cfg, ticks, backend, device):
     return series, ticks / secs, dict(ops.LAUNCHES)
 
 
-def replay_phase(torch, device) -> None:
+def replay_kernels(cfg) -> tuple[str, ...]:
+    """The FLIC kernels a run of ``cfg`` with ``probe_backend="cuda"`` must
+    launch: the upsert always, the sweep on mutable workloads, the probe
+    where it is dense."""
+    need = ["flic_insert"]
+    if cfg.workload.mutable and cfg.insert_policy == "directory":
+        need.append("flic_update")
+    if cfg.workload.fanout is None:
+        need.append("flic_lookup")
+    return tuple(need)
+
+
+def replay_phase(torch, device) -> list:
+    """Every committed JAX replay through ``run_sim`` with the kernels,
+    bitwise; returns the paths."""
     import numpy as np
 
     from repro_torch.core.metrics import EMBODIMENT_FIELDS
@@ -669,12 +713,19 @@ def replay_phase(torch, device) -> None:
     from repro_torch.core.simulator import run_sim
     from repro_torch.kernels import ops
 
-    for path in sorted((ROOT / "src" / "repro_torch" / "testdata").glob("replay_*.npz")):
+    paths = sorted((ROOT / "src" / "repro_torch" / "testdata").glob("replay_*.npz"))
+    if len(paths) != 34:
+        raise AssertionError(f"expected 34 replay fixtures, found {len(paths)}")
+    total = dict.fromkeys(FLIC_KERNELS, 0)
+    for path in paths:
         cfg, draws, expected = load_replay(path, device)
         cfg = dataclasses.replace(cfg, probe_backend="cuda")
         ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         _, series = run_sim(cfg, len(draws), device=device, draws=draws)
         torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
         for f, want in expected.items():
             if f in EMBODIMENT_FIELDS:
@@ -682,10 +733,44 @@ def replay_phase(torch, device) -> None:
             got = getattr(series, f).cpu().numpy()
             if not np.array_equal(got, want):
                 raise AssertionError(f"replay {path.name}: TickMetrics.{f} diverged from JAX")
-        if launches["flic_insert"] == 0 or launches["flic_lookup"] == 0:
-            raise AssertionError(f"replay {path.name}: kernels not launched: {launches}")
+        missing = [k for k in replay_kernels(cfg) if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"replay {path.name}: kernels {missing} not launched: {launches}")
+        for k in FLIC_KERNELS:
+            total[k] += launches[k]
         emit("replay", file=path.name, ticks=len(draws), equal_to_jax=True,
-             launches=launches)
+             ticks_per_s=len(draws) / secs, launches=launches)
+    if not all(total.values()):
+        raise AssertionError(f"replays: a FLIC kernel never launched: {total}")
+    return paths
+
+
+def reference_phase(torch, device, paths) -> None:
+    """The reference engine on every seed-0 replay, bitwise equal to JAX's
+    fused series."""
+    import numpy as np
+
+    from repro_torch.core.metrics import EMBODIMENT_FIELDS
+    from repro_torch.core.replay import load_replay
+    from repro_torch.core.simulator import run_any_engine
+
+    seed0 = [p for p in paths if not re.search(r"_s\d+\.npz$", p.name)]
+    if len(seed0) != 17:
+        raise AssertionError(f"expected 17 seed-0 replays, found {len(seed0)}")
+    for path in seed0:
+        cfg, draws, expected = load_replay(path, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, series = run_any_engine(cfg, len(draws), engine="reference", draws=draws,
+                                   device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for f, want in expected.items():
+            if f not in EMBODIMENT_FIELDS and not np.array_equal(
+                    getattr(series, f).cpu().numpy(), want):
+                raise AssertionError(f"reference {path.name}: TickMetrics.{f} diverged from JAX")
+        emit("reference", file=path.name, ticks=len(draws), equal_to_jax=True,
+             ticks_per_s=len(draws) / secs)
 
 
 def tick_profile(torch, device, cfg, ticks_per_s: float, ticks: int = 20) -> dict:
@@ -740,13 +825,38 @@ def tick_profile(torch, device, cfg, ticks_per_s: float, ticks: int = 20) -> dic
     )
 
 
+def trace_on_card(torch, device, cfg) -> None:
+    """The trace the native planner uploads equals ``materialize_trace``'s
+    numpy arrays, and a tick's plan reads its row."""
+    import numpy as np
+
+    from repro_torch.core import workload as wl
+
+    spec = cfg.workload
+    want = wl.materialize_trace(spec, cfg.n_nodes)
+    got = wl.trace_tensors(spec, cfg.n_nodes, device)
+    for w, g in zip(want, got):
+        if g.device.type != "cuda" or not np.array_equal(g.cpu().numpy(), w):
+            raise AssertionError("trace: the trace on the card differs from materialize_trace")
+    gen = torch.Generator(device=device)
+    plan = wl.plan_tick(cfg, wl.init_plan_state(cfg, device), 7, gen)
+    if not np.array_equal(plan.r_kids.cpu().numpy(), want[0][7]):
+        raise AssertionError("trace: tick 7's plan does not read row 7")
+    emit("trace_arrays", shape=list(want[0].shape), equal_to_numpy=True,
+         reads=int((want[1] == wl.OP_READ).sum()), writes=int((want[1] == wl.OP_WRITE).sum()))
+
+
 HEADLINE = ("read_miss_ratio", "hit_local_ratio", "hit_fog_ratio", "hit_queue_ratio",
             "sync_store_request_ratio", "wan_reduction_vs_baseline",
             "coherence_updates", "stale_read_ratio", "writes_gen", "writes_drained",
             "queue_dropped")
 
 
-def engine_phase(torch, device, name, cfg, ticks, must_launch):
+def engine_phase(torch, device, name, cfg, ticks, must_launch, per_tick=None,
+                 profile_ticks=20):
+    """The cell ``cfg`` for ``ticks`` ticks with the kernels and inline:
+    equal series, each of ``must_launch`` launched (``per_tick``: exactly
+    that many launches a tick), then its profile over ``profile_ticks``."""
     from repro_torch.core.metrics import summarize
 
     s_cuda, rate_cuda, launches = timed_run(torch, cfg, ticks, "cuda", device)
@@ -759,12 +869,16 @@ def engine_phase(torch, device, name, cfg, ticks, must_launch):
     missing = [k for k in must_launch if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name}: kernels {missing} were not launched: {launches}")
+    wrong = {k: (launches[k], n * ticks) for k, n in (per_tick or {}).items()
+             if launches[k] != n * ticks}
+    if wrong:
+        raise AssertionError(f"{name}: launches (got, expected): {wrong}")
     summary = summarize(s_cuda)
     emit(name, n_nodes=cfg.n_nodes, ticks=ticks, fanout=cfg.workload.fanout,
          ticks_per_s_cuda=rate_cuda, ticks_per_s_inline=rate_inline,
          series_equal=True, launches=launches,
          summary={k: summary[k] for k in HEADLINE})
-    emit("profile", cell=name, **tick_profile(torch, device, cfg, rate_cuda))
+    emit("profile", cell=name, **tick_profile(torch, device, cfg, rate_cuda, profile_ticks))
     return launches, summary
 
 
@@ -2119,6 +2233,11 @@ def main() -> None:
     emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
+    start = time.perf_counter()
+
+    def elapsed(after: str) -> None:
+        emit("elapsed", after=after, seconds=time.perf_counter() - start)
+
     t0 = time.perf_counter()
     logs = build.build_all()
     ptxas = {k: ptxas_report(v) for k, v in logs.items()}
@@ -2134,19 +2253,49 @@ def main() -> None:
     )
     city_cfg = SimConfig(n_nodes=10_000, cache_lines=200,
                          workload=dataclasses.replace(wl.SCENARIOS["paper"], fanout=32))
+    # The dense cell's shape under the replicate policy (as the paper_replicate
+    # conformance case: Bernoulli loss 0.1), and under Poisson arrivals and
+    # trace replay (its loss model, an outage inside their 300 ticks).
+    replicate_cfg = SimConfig(n_nodes=1000, cache_lines=200, loss_prob=0.1,
+                              insert_policy="replicate", workload=wl.SCENARIOS["paper"])
+    poisson_cfg = SimConfig(n_nodes=1000, cache_lines=200, loss_model="gilbert_elliott",
+                            workload=wl.SCENARIOS["poisson"], outage_schedule=((150, 60),))
+    trace_cfg = dataclasses.replace(poisson_cfg, workload=wl.SCENARIOS["trace_ycsb"])
+    cfgs = {"dense": dense_cfg, "city": city_cfg, "replicate": replicate_cfg,
+            "poisson": poisson_cfg, "trace": trace_cfg}
 
     cycles_per_ms = spin_cycles_per_ms(torch)
     launch_floor_ms = time_ms(torch, torch.cuda._sleep, lambda: [0], cycles_per_ms)
-    kres = kernel_phase(torch, device, dense_cfg, city_cfg, cycles_per_ms)
+    kres = kernel_phase(torch, device, cfgs, cycles_per_ms)
     emit("kernels", bitwise_equal=True, spin_cycles_per_ms=cycles_per_ms,
          launch_floor_ms=launch_floor_ms, **kres)
 
-    replay_phase(torch, device)
+    elapsed("kernels")
+    replays = replay_phase(torch, device)
+    elapsed("replay")
 
-    dense_launches, _ = engine_phase(torch, device, "dense", dense_cfg, 600, FLIC_KERNELS)
-    city_launches, city = engine_phase(torch, device, "city", city_cfg, 120, ("flic_insert",))
+    cell_launches = {}
+    cell_launches["dense"], _ = engine_phase(torch, device, "dense", dense_cfg, 600,
+                                             FLIC_KERNELS)
+    cell_launches["city"], city = engine_phase(torch, device, "city", city_cfg, 120,
+                                               ("flic_insert",))
     if city["queue_dropped"] <= 0:
         raise AssertionError("city: the writer ring was expected to overflow")
+    n = replicate_cfg.n_nodes
+    cell_launches["replicate"], _ = engine_phase(
+        torch, device, "replicate", replicate_cfg, 30, ("flic_insert", "flic_lookup"),
+        per_tick={"flic_insert": n + 1, "flic_update": 0, "flic_lookup": 1},
+        profile_ticks=5)    # ~2,500 launches a tick: 5 ticks keep the trace short
+    cell_launches["poisson"], _ = engine_phase(
+        torch, device, "poisson", poisson_cfg, 300, FLIC_KERNELS,
+        per_tick={"flic_insert": 5, "flic_update": 4, "flic_lookup": 1})
+    trace_on_card(torch, device, trace_cfg)
+    cell_launches["trace"], _ = engine_phase(
+        torch, device, "trace", trace_cfg, 300, FLIC_KERNELS,
+        per_tick={"flic_insert": 2, "flic_update": 1, "flic_lookup": 1})
+    elapsed("engine cells")
+    reference_phase(torch, device, replays)
+    elapsed("reference")
 
     serve = serve_phase(torch, device)
     pres = paged_kernel_phase(torch, device, serve.pop("attn_args"), cycles_per_ms)
@@ -2155,6 +2304,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     granite3 = granite3_serve_phase(torch, device)
     torch.cuda.empty_cache()
+    elapsed("serving")
 
     merge = merge_phase(torch, device, dense_cfg)
     mres = merge_kernel_phase(torch, device, merge.pop("args"), cycles_per_ms)
@@ -2166,8 +2316,9 @@ def main() -> None:
     ssm_replay_phase(torch, device)
 
     # Headline case of each FLIC kernel: the first main-path case of the
-    # kernels phase.  Launches: both main-path runs (dense, then city), each
-    # counted from 0.  max_abs_err is 0: every FLIC kernel passed a bitwise
+    # kernels phase.  Launches: the main path's kernel runs of the five
+    # engine cells (dense, city, replicate, poisson, trace), each counted
+    # from 0.  max_abs_err is 0: every FLIC kernel passed a bitwise
     # comparison.  paged_attention: the serve run's launches, its headline
     # the serve step's inputs, its error the largest over all its cases.
     lines = []
@@ -2177,7 +2328,7 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": dense_launches[name] + city_launches[name],
+            "launches": sum(c[name] for c in cell_launches.values()),
             "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": None,
         })
@@ -2203,6 +2354,7 @@ def main() -> None:
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,
         })
+    elapsed("ssm")
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

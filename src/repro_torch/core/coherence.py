@@ -7,14 +7,17 @@ that JAX drew (``TickDraws`` replay) or draw its own from a
 with a Python float is compared in float32, as JAX compares with its weakly
 typed constants, so replayed uniforms give bitwise-identical masks.
 
-The replicate-policy merge (``merge_broadcasts``) and the analytic loss
-bounds come with a later slice.
+Also the replicate policy's gossip round (``merge_broadcasts``) and the
+paper's analytic loss bound beside the exact i.i.d. value.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from repro_torch.core.cache_state import CacheLine, CacheState
+from repro_torch.core.flic import insert_batch, vmap_nodes
 
 
 def bernoulli_loss_mask(u: torch.Tensor, loss_prob: float) -> torch.Tensor:
@@ -57,3 +60,53 @@ def gilbert_elliott_mask(state: GilbertElliott, u: torch.Tensor,
     if loss_p.shape[0] != u.shape[0]:
         raise ValueError("mask leading axis must be receivers")
     return u >= loss_p.reshape((u.shape[0],) + (1,) * (u.dim() - 1))
+
+
+def merge_broadcasts(caches: CacheState, rows: CacheLine, delivered: torch.Tensor,
+                     now, self_always: bool = True,
+                     node_ids: torch.Tensor | None = None) -> tuple[CacheState, CacheLine]:
+    """One gossip round: every node upserts the R broadcast rows in order.
+
+    ``delivered`` is the (N, R) delivery mask per (receiver, row); with
+    ``self_always`` a node always hears its own rows (``node_ids``: the
+    global id of each cache lane, default ``arange(N)``).  Receivers store
+    a row clean: only its origin keeps it dirty.  Returns (caches,
+    evictions) with leading axes (N, R).
+    """
+    n = caches.tags.shape[0]
+    if node_ids is None:
+        node_ids = torch.arange(n, dtype=torch.int32, device=rows.key.device)
+    if self_always:
+        delivered = delivered | (rows.origin[None, :] == node_ids[:, None])
+
+    def per_node(cache, deliv_row, node_id):
+        lines = dataclasses.replace(rows, valid=rows.valid & deliv_row,
+                                    dirty=rows.dirty & (rows.origin == node_id))
+        return insert_batch(cache, lines, now)
+
+    return vmap_nodes(per_node)(caches, delivered, node_ids.to(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# Analytics: the paper's §II-B bound and the exact i.i.d. loss probability.
+# --------------------------------------------------------------------------
+
+def markov_loss_bound(loss_prob: float, n_nodes: int) -> float:
+    """Markov bound on near-total update loss (paper §II-B).
+
+    Pr[sum L_k >= N-1] <= E[sum L_k]/(N-1) = N·p/(N-1).
+
+    NOTE (erratum): the paper prints E[L_k]/(N-1) = p/(N-1), dropping the
+    N factor from E[sum L_k] = N·p.  The corrected bound is implemented
+    here; it still decreases toward p as N grows, preserving the paper's
+    qualitative claim, and it actually dominates the exact i.i.d. total-loss
+    probability p^N for all p (the printed form fails at p -> 1).
+    """
+    if n_nodes <= 1:
+        return 1.0
+    return min(1.0, n_nodes * loss_prob / (n_nodes - 1))
+
+
+def exact_total_loss_prob(loss_prob: float, n_nodes: int) -> float:
+    """Exact i.i.d. probability that ALL N receivers lose the packet."""
+    return float(loss_prob) ** int(n_nodes)

@@ -18,6 +18,11 @@ static configuration, and every count stays on the device.
 With ``probe_backend="cuda"`` on CUDA tensors the kernels update the cache
 tables of the state passed in IN PLACE (the port's counterpart of JAX's
 buffer donation); ``run_sim`` never reuses a state it has stepped.
+
+Under ``insert_policy="replicate"`` every hearer upserts every broadcast
+row (``_merge_replicate``): R batched upserts a write wave, so R
+``flic_insert`` launches on the card.  ``run_any_engine`` also runs the
+reference engine (``core/simulator_ref.py``).
 """
 from __future__ import annotations
 
@@ -37,7 +42,14 @@ from repro_torch.core.coherence import (
     gilbert_elliott_advance,
     gilbert_elliott_mask,
 )
-from repro_torch.core.flic import insert_rows, invalidate_nodes, kernels, update_rows
+from repro_torch.core.flic import (
+    insert,
+    insert_rows,
+    invalidate_nodes,
+    kernels,
+    update_rows,
+    vmap_nodes,
+)
 from repro_torch.core.metrics import TickMetrics, windowed_loop
 
 I32, F32 = torch.int32, torch.float32
@@ -214,6 +226,35 @@ def _response_mask_compact(cfg: SimConfig, channel, u, slot_nid):
     return _loss_mask(cfg, channel, u, u.shape, u.device, receivers=slot_nid)
 
 
+def _neighbor_index(cfg: SimConfig, device) -> torch.Tensor | None:
+    """The static (N, K) ring neighbour table, or None when gossip is dense."""
+    if cfg.workload.fanout is None:
+        return None
+    return wl.neighbor_table(cfg.n_nodes, cfg.workload.fanout, device)
+
+
+def _response_mask_dense(cfg: SimConfig, channel, plan: wl.RequestPlan, nbr,
+                         u_resp) -> torch.Tensor | None:
+    """Dense (n, n) [reader, responder] response mask for the per-pass
+    engine: the compact draw scattered to the readers' rows (dead slots
+    dropped), non-neighbour responders False under fan-out.  None: apply
+    no mask (dense gossip, loss off)."""
+    n = cfg.n_nodes
+    compact = _response_mask_compact(cfg, channel, u_resp, plan.slot_nid.long())
+    if nbr is None:
+        if compact is None:
+            return None
+        rows = compact
+    else:
+        lanes = compact
+        if lanes is None:
+            lanes = torch.ones((plan.slot_nid.shape[0], cfg.workload.fanout),
+                               dtype=torch.bool, device=plan.slot_nid.device)
+        rows = _expand_lanes_dense(lanes, nbr[plan.slot_nid.long()], n)
+    return wb.set_drop(torch.zeros((n, n), dtype=torch.bool, device=rows.device),
+                       plan.slot_id, rows)
+
+
 # --------------------------------------------------------------------------
 # Writer-ring forwarding and the store (§VI).
 # --------------------------------------------------------------------------
@@ -248,6 +289,51 @@ def _resolve_backstop_keyed(queue: wb.WriteQueue, store: bs.StoreState, healthy,
     ring_ts = queue.data_ts[(slot.clamp(min=0) % queue.capacity).long()]
     served_ts = torch.where(queue_hit, ring_ts, torch.where(found, durable_ts, -1))
     return queue_hit, store_read, failed, found, served_ts
+
+
+# --------------------------------------------------------------------------
+# Broadcast merge under the two insert policies.
+# --------------------------------------------------------------------------
+
+def _insert_own_rows(caches: CacheState, rows: CacheLine, now) -> CacheState:
+    """Each node upserts its own row: the scalar ``insert`` over the node
+    axis (the reference engine's form; the fused engine uses
+    ``insert_rows``)."""
+    return vmap_nodes(lambda cache, line: insert(cache, line, now)[0])(caches, rows)
+
+
+def _merge_replicate(caches: CacheState, rows: CacheLine, delivered: torch.Tensor,
+                     now, backend: str | None = None) -> CacheState:
+    """The replicate policy's gossip round as R batched upserts.
+
+    ``coherence.merge_broadcasts`` upserts the R rows at each node in order
+    r = 0..R-1, and node i's r-th upsert reads only node i's cache; so R
+    calls of ``insert_rows`` compute the same caches.  Call r gives node i
+    row r, live where it was delivered or node i is its origin, dirty only
+    at its origin.  The evictions are dropped, as JAX's engine drops them.
+    """
+    n = caches.tags.shape[0]
+    r = rows.key.shape[0]
+    dev = rows.key.device
+    own = rows.origin[:, None] == torch.arange(n, dtype=I32, device=dev)[None, :]  # (R, N)
+    valid = rows.valid[:, None] & (delivered.T | own)
+    dirty = rows.dirty[:, None] & own
+
+    def per_row(x):            # (R, ...) -> (R, N, ...), each row one call's lanes
+        return x[:, None].expand(r, n, *x.shape[1:]).contiguous()
+
+    sidx = set_index(rows.key, caches.num_sets).to(I32)
+    keys, ts, origin, data, sidx = (per_row(x) for x in (rows.key, rows.data_ts, rows.origin,
+                                                         rows.data, sidx))
+    # One copy of the tables a wave, then R upserts into it in place.
+    caches = CacheState(*(getattr(caches, f.name).clone()
+                          for f in dataclasses.fields(CacheState)))
+    for i in range(r):
+        caches, _ = insert_rows(
+            caches, CacheLine(key=keys[i], data_ts=ts[i], origin=origin[i], data=data[i],
+                              valid=valid[i], dirty=dirty[i]),
+            now, backend=backend, sidx=sidx[i], inplace=True)
+    return caches
 
 
 # --------------------------------------------------------------------------
@@ -300,11 +386,6 @@ def _fma32(x: torch.Tensor, y: float, z: torch.Tensor) -> torch.Tensor:
 
 def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimState, TickMetrics]:
     """One tick of the fused engine on the draws of tick ``draws.t``."""
-    if cfg.insert_policy != "directory":
-        raise NotImplementedError(
-            "insert_policy='replicate' needs merge_broadcasts/insert_batch, "
-            "which come with a later slice of the port"
-        )
     n = cfg.n_nodes
     spec = cfg.workload
     t = draws.t
@@ -329,7 +410,7 @@ def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimStat
     n_writes = _sum(plan.w_valid)
 
     # ---- 2. fog broadcast under the loss model -----------------------------
-    nbr = None if spec.fanout is None else wl.neighbor_table(n, spec.fanout, dev)
+    nbr = _neighbor_index(cfg, dev)
     channel = state.channel
     if cfg.loss_model == "gilbert_elliott":
         channel = gilbert_elliott_advance(channel, draws.u_ge_up, draws.u_ge_dn)
@@ -340,6 +421,9 @@ def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimStat
             delivered = delivered & online[:, None]
     n_coh = torch.zeros((), dtype=I32, device=dev)
     for rows in rows_waves:
+        if cfg.insert_policy != "directory":
+            caches = _merge_replicate(caches, rows, delivered, t, cfg.probe_backend)
+            continue
         caches, _ = insert_rows(caches, rows, t, backend=cfg.probe_backend)
         if spec.mutable:
             caches, n_coh_p = update_rows(caches, rows, delivered, t,
@@ -586,9 +670,20 @@ def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimStat
 # The tick loop.
 # --------------------------------------------------------------------------
 
+def _tick_fn(engine: str):
+    if engine == "reference":
+        from repro_torch.core.simulator_ref import sim_tick_ref
+
+        return sim_tick_ref
+    if engine != "fused":
+        raise ValueError(f"unknown engine {engine!r}; use 'fused' or 'reference'")
+    return sim_tick
+
+
 def run_sim(cfg: SimConfig, ticks: int, seed: int = 0, *, device=None,
             metrics_every: int = 1, draws: Optional[Iterable[TickDraws]] = None,
-            state: Optional[SimState] = None) -> tuple[SimState, TickMetrics]:
+            state: Optional[SimState] = None,
+            engine: str = "fused") -> tuple[SimState, TickMetrics]:
     """Run ``ticks`` ticks; returns (final_state, metric series).
 
     ``device`` defaults to the card; ``device="cpu"`` runs on the CPU.
@@ -597,8 +692,11 @@ def run_sim(cfg: SimConfig, ticks: int, seed: int = 0, *, device=None,
     seeded with ``seed``.  ``state`` continues a run (for example one carried
     over from JAX by ``state_from_numpy``); the default is ``init_sim``.
     ``metrics_every`` emits one aggregated row per that many ticks.
+    ``engine``: ``"fused"`` (``sim_tick``) or ``"reference"`` (the per-pass
+    ``simulator_ref.sim_tick_ref``); both execute the same draws.
     """
     device = resolve_device(device)
+    tick_fn = _tick_fn(engine)
     kernels(cfg.probe_backend)  # reject an unknown backend before any work
     wl.validate_run(cfg, ticks)
     if state is None:
@@ -623,9 +721,33 @@ def run_sim(cfg: SimConfig, ticks: int, seed: int = 0, *, device=None,
             return d
 
     def step(s: SimState):
-        return sim_tick(cfg, s, source(s, next(ticks_host)))
+        return tick_fn(cfg, s, source(s, next(ticks_host)))
 
     return windowed_loop(step, state, ticks, metrics_every)
+
+
+def run_any_engine(cfg: SimConfig, ticks: int, seed: int = 0, *, engine: str = "fused",
+                   metrics_every: int = 1, draws: Optional[Iterable[TickDraws]] = None,
+                   device=None) -> tuple[SimState, TickMetrics]:
+    """Engine-agnostic runner of the conformance contract (DESIGN.md §8).
+
+    ``"fused"`` and ``"reference"`` run here through ``run_sim``; the mesh
+    engines ``"distributed"`` and ``"sharded"`` are not ported yet.  On
+    every engine ``ticks`` must be a multiple of ``metrics_every``.
+    """
+    if metrics_every != 1 and ticks % metrics_every != 0:
+        raise ValueError(
+            f"metrics thinning aggregates fixed windows on every engine "
+            f"(including distributed): ticks ({ticks}) must be divisible by "
+            f"metrics_every ({metrics_every})"
+        )
+    if engine in ("distributed", "sharded"):
+        item = 5 if engine == "distributed" else 6
+        raise NotImplementedError(
+            f"engine={engine!r} is not ported yet (ROADMAP.md Queue 1 item {item})"
+        )
+    return run_sim(cfg, ticks, seed, device=device, metrics_every=metrics_every,
+                   draws=draws, engine=engine)
 
 
 # --------------------------------------------------------------------------

@@ -9,19 +9,21 @@ The plan stage: ``RequestPlan`` holds one tick's requests as fixed-shape
 tensors, exactly the JAX plan minus its PRNG keys.  An engine executes a
 plan; it never generates one.  Plans come from two sources:
 
-* the native ``plan_tick`` here, which draws from a ``torch.Generator``
-  (stream and zipf-cadence specs).  It samples the same distributions as
-  JAX, not the same numbers;
+* the native ``plan_tick`` here, which draws from a ``torch.Generator``.
+  It samples the same distributions as JAX, not the same numbers; a trace
+  plan draws nothing, so its fields are JAX's bit for bit;
 * JAX's own ``plan_tick``, replayed through ``simulator.TickDraws``.
 
-Native Poisson arrivals and trace replay, and the trace generators, the npz
-loader and the consistent-hash ring, come with a later slice.
+The trace generators (``materialize_trace``) are host numpy, seeded as
+JAX's, so a ``(T, N)`` trace is the same array in both packages.  The
+consistent-hash ring comes with the sharded engine.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+import os
 from typing import Literal, Optional
 
 import numpy as np
@@ -37,11 +39,6 @@ OP_WRITE = 0
 OP_READ = 1
 # Durability-index sentinel: the read's target row was never generated.
 NO_ROW = 2**30
-
-NATIVE_PLAN_TODO = (
-    "native planning of {what} comes with the native Poisson/trace planning "
-    "slice; replay JAX's plans through simulator.TickDraws meanwhile"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,18 +235,145 @@ def key_hash(key_ids: torch.Tensor) -> torch.Tensor:
     return hash2_u32(key_ids, torch.full_like(key_ids, KEY_SALT, dtype=torch.int64))
 
 
+def poisson_counts(spec: WorkloadSpec, gen: torch.Generator, n: int) -> torch.Tensor:
+    """Per-node Poisson(``poisson_rate``) write-request counts for one tick,
+    drawn from ``gen`` (JAX's distribution, not its numbers)."""
+    rate = torch.full((n,), spec.poisson_rate, dtype=torch.float32, device=gen.device)
+    return torch.poisson(rate, generator=gen).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Trace replay: synthetic YCSB/Globetraff-style generators + npz loading.
+# --------------------------------------------------------------------------
+
+def materialize_trace(spec: WorkloadSpec, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Build (or load) the ``(T, n)`` (key_ids, ops) arrays of a trace spec.
+
+    Host-side numpy, deterministic in ``(spec, n)``.  Key ids are validated
+    against ``spec.key_universe``; ops against {OP_WRITE, OP_READ}.
+    """
+    ts = spec.trace
+    if ts is None:
+        raise ValueError("materialize_trace needs popularity='trace'")
+    if ts.source == "npz":
+        with np.load(ts.path) as data:
+            for field in ("key_ids", "ops"):
+                if field not in data:
+                    raise ValueError(
+                        f"trace file {ts.path!r} is missing array "
+                        f"{field!r}; expected 'key_ids' and 'ops' of shape "
+                        f"(T, {n})"
+                    )
+            kids = np.asarray(data["key_ids"], dtype=np.int64)
+            ops = np.asarray(data["ops"], dtype=np.int64)
+        if kids.shape != ops.shape or kids.ndim != 2:
+            raise ValueError(
+                f"trace arrays must both be (T, N); got key_ids "
+                f"{kids.shape} vs ops {ops.shape} in {ts.path!r}"
+            )
+        if kids.shape[1] != n:
+            raise ValueError(
+                f"trace {ts.path!r} covers {kids.shape[1]} nodes but the "
+                f"simulation has n_nodes={n}; regenerate the trace or "
+                f"change n_nodes"
+            )
+        if kids.min() < 0 or kids.max() >= spec.key_universe:
+            raise ValueError(
+                f"trace key_ids must lie in [0, key_universe="
+                f"{spec.key_universe}); got range "
+                f"[{kids.min()}, {kids.max()}] in {ts.path!r}"
+            )
+        if not np.isin(ops, (OP_WRITE, OP_READ)).all():
+            raise ValueError(
+                f"trace ops must be {OP_WRITE} (write) or {OP_READ} (read); "
+                f"{ts.path!r} contains other values"
+            )
+        return kids.astype(np.int32), ops.astype(np.int32)
+
+    # One independent generator per component, so each (T, n) array is
+    # prefix-stable in T: TraceSpec(length=2T) replays TraceSpec(length=T)
+    # for the first T ticks.
+    src_tag = 0 if ts.source == "ycsb" else 1
+
+    def _rng(component: int):
+        return np.random.default_rng([int(ts.seed), src_tag, component])
+
+    shape = (ts.length, n)
+    ranks = np.arange(1, spec.key_universe + 1, dtype=np.float64)
+    w = ranks ** -float(ts.zipf_alpha)
+    cdf = np.cumsum(w) / np.sum(w)
+    zipf_ids = np.minimum(
+        np.searchsorted(cdf, _rng(0).random(shape)), spec.key_universe - 1
+    )
+    if ts.source == "ycsb":
+        kids = zipf_ids
+    else:  # globetraff: zipfian web traffic blended with uniform P2P
+        p2p = _rng(1).random(shape) < ts.p2p_fraction
+        uniform_ids = _rng(2).integers(0, spec.key_universe, shape)
+        kids = np.where(p2p, uniform_ids, zipf_ids)
+    ops = np.where(_rng(3).random(shape) < ts.read_fraction, OP_READ, OP_WRITE)
+    return kids.astype(np.int32), ops.astype(np.int32)
+
+
+def _trace_stamp(spec: WorkloadSpec) -> Optional[tuple]:
+    """``(mtime, size)`` of an npz trace file (None for synthetic traces):
+    part of the cache key, so a rewritten file is read and checked again
+    and an unchanged one costs no I/O."""
+    if spec.trace is None or spec.trace.source != "npz":
+        return None
+    try:
+        st = os.stat(spec.trace.path)
+    except OSError as e:
+        raise ValueError(f"trace file {spec.trace.path!r} is not readable: {e}") from e
+    return (st.st_mtime_ns, st.st_size)
+
+
+@functools.lru_cache(maxsize=32)
+def _trace_arrays_cached(spec: WorkloadSpec, n: int, stamp) -> tuple[np.ndarray, np.ndarray]:
+    return materialize_trace(spec, n)
+
+
+def _trace_arrays(spec: WorkloadSpec, n: int) -> tuple[np.ndarray, np.ndarray]:
+    return _trace_arrays_cached(spec, n, _trace_stamp(spec))
+
+
+@functools.lru_cache(maxsize=32)
+def _trace_tensors_cached(spec: WorkloadSpec, n: int, stamp, device: torch.device):
+    kids, ops = _trace_arrays_cached(spec, n, stamp)
+    return torch.from_numpy(kids).to(device), torch.from_numpy(ops).to(device)
+
+
+def trace_tensors(spec: WorkloadSpec, n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The trace's (key_ids, ops) as int32 ``(T, n)`` tensors on ``device``,
+    uploaded once and then shared."""
+    return _trace_tensors_cached(spec, n, _trace_stamp(spec), torch.device(device))
+
+
+def trace_length(spec: WorkloadSpec, n: int) -> int:
+    """Ticks covered by the (materialized) trace of ``spec``."""
+    return _trace_arrays(spec, n)[0].shape[0]
+
+
+def save_trace_npz(path: str, key_ids: np.ndarray, ops: np.ndarray) -> None:
+    """Write a ``(T, N)`` trace in the ``TraceSpec(source='npz')`` format."""
+    np.savez(path, key_ids=np.asarray(key_ids, np.int32), ops=np.asarray(ops, np.int32))
+
+
 # --------------------------------------------------------------------------
 # Static topology and run checks.
 # --------------------------------------------------------------------------
 
 def validate_run(cfg, ticks: int) -> None:
-    """Run-length invariants that need ``ticks``.
-
-    The fan-out checks of the JAX function.  Its trace-length check needs the
-    trace generators, which come with the native trace slice; a replayed
-    trace plan carries its own length (``run_sim`` checks the draw count).
-    """
+    """Run-length invariants that need ``ticks`` (called by every runner)."""
     spec = cfg.workload
+    if spec.popularity == "trace":
+        t_len = trace_length(spec, cfg.n_nodes)
+        if t_len < ticks:
+            raise ValueError(
+                f"trace covers {t_len} ticks but the run asks for {ticks}; "
+                f"extend the trace (TraceSpec(length=...) for synthetic "
+                f"sources, or regenerate the npz) or shorten the run"
+            )
     if spec.fanout is not None:
         if spec.fanout > cfg.n_nodes - 1:
             raise ValueError(
@@ -368,18 +492,22 @@ def sample_key_ids(spec: WorkloadSpec, gen: torch.Generator, shape) -> torch.Ten
     return ids.clamp(0, spec.key_universe - 1).to(torch.int32)
 
 
+def _trace_tick(spec: WorkloadSpec, n: int, t: int, device):
+    """The trace's (key_ids, ops) row for tick ``t``, the last row past T."""
+    kids, ops = trace_tensors(spec, n, device)
+    row = min(t, kids.shape[0] - 1)
+    return kids[row], ops[row]
+
+
 def plan_tick(cfg, plan_state: PlanState, t: int, gen: torch.Generator) -> RequestPlan:
     """Materialize tick ``t``'s workload, drawing from ``gen``.
 
-    Covers the stream and zipf-cadence specs; the tensors live on
-    ``gen.device``.  ``t`` is the host tick, so no bound depends on a device
-    value and the plan needs no synchronisation.
+    The tensors live on ``gen.device``.  ``t`` is the host tick, so no bound
+    depends on a device value and the plan needs no synchronisation.  A
+    trace plan reads row ``t`` of the trace (the last row past its end) and
+    draws nothing.
     """
     spec = cfg.workload
-    if spec.popularity == "trace":
-        raise NotImplementedError(NATIVE_PLAN_TODO.format(what="trace replay"))
-    if spec.arrivals == "poisson":
-        raise NotImplementedError(NATIVE_PLAN_TODO.format(what="Poisson arrivals"))
     n = cfg.n_nodes
     dev = gen.device
     i32 = torch.int32
@@ -388,7 +516,20 @@ def plan_tick(cfg, plan_state: PlanState, t: int, gen: torch.Generator) -> Reque
     rejoin = rejoin_mask(spec, n, t, dev)
 
     # ---- writes ------------------------------------------------------------
-    if spec.mutable:
+    if spec.popularity == "trace":
+        trace_kids, trace_ops = _trace_tick(spec, n, t, dev)
+        w_kids = trace_kids[None, :]
+        w_keys = key_hash(trace_kids)[None, :]
+        w_valid = ((trace_ops == OP_WRITE) & rate_mask(spec, n, t, dev) & online)[None, :]
+    elif spec.arrivals == "poisson":
+        counts = poisson_counts(spec, gen, n)
+        p_lanes = spec.max_requests_per_tick
+        lane = torch.arange(p_lanes, dtype=i32, device=dev)
+        lane_ok = lane[:, None] < counts.clamp(max=p_lanes)[None, :]
+        w_kids = sample_key_ids(spec, gen, (p_lanes, n))
+        w_keys = key_hash(w_kids)
+        w_valid = lane_ok & (rate_mask(spec, n, t, dev) & online)[None, :]
+    elif spec.mutable:
         kids = sample_key_ids(spec, gen, (n,))
         w_kids = kids[None, :]
         w_keys = key_hash(kids)[None, :]
@@ -417,7 +558,12 @@ def plan_tick(cfg, plan_state: PlanState, t: int, gen: torch.Generator) -> Reque
     cadence = ((t + node_ids) % cfg.read_period == 0) & (t > 0)
     minus_one = torch.full((n,), -1, dtype=i32, device=dev)
     zeros = torch.zeros((n,), dtype=i32, device=dev)
-    if spec.mutable:
+    if spec.popularity == "trace":
+        reading = (trace_ops == OP_READ) & online
+        r_kids = trace_kids
+        r_keys = key_hash(trace_kids)
+        r_enq_idx, r_fill_ts, r_src = zeros, minus_one, minus_one
+    elif spec.mutable:
         reading = cadence & online
         r_kids = sample_key_ids(spec, gen, (n,))
         r_keys = key_hash(r_kids)
@@ -438,13 +584,19 @@ def plan_tick(cfg, plan_state: PlanState, t: int, gen: torch.Generator) -> Reque
             r_enq_idx = r_tick * n + src
         r_fill_ts, r_src = r_tick, src
 
-    # ---- reader-compaction slots: the nodes = -t (mod read_period) ---------
-    p = cfg.read_period
-    slot_id = (-t) % p + p * torch.arange(cfg.readers_per_tick, dtype=i32, device=dev)
-    slot_ok = (slot_id < n) & (t > 0)
-    slot_nid = slot_id.clamp(max=n - 1)
-    if spec.has_churn:
-        slot_ok = slot_ok & online[slot_nid.long()]
+    # ---- reader-compaction slots ---------------------------------------------
+    if spec.popularity == "trace":
+        # any subset of the nodes may read: one slot per node, R = N
+        slot_id = slot_nid = node_ids
+        slot_ok = reading
+    else:
+        # the stagger activates exactly the nodes = -t (mod read_period)
+        p = cfg.read_period
+        slot_id = (-t) % p + p * torch.arange(cfg.readers_per_tick, dtype=i32, device=dev)
+        slot_ok = (slot_id < n) & (t > 0)
+        slot_nid = slot_id.clamp(max=n - 1)
+        if spec.has_churn:
+            slot_ok = slot_ok & online[slot_nid.long()]
 
     return RequestPlan(
         online=online, rejoin=rejoin,

@@ -3,6 +3,8 @@
 It samples the same distributions as JAX, not the same numbers, so it is
 held to what no random draw decides: the tick and read counts and the
 writes generated are exact, and every generated write is accounted for.
+Poisson arrivals, whose write counts are drawn, are held in
+``test_torch_trace_poisson.py``.
 """
 import dataclasses
 
@@ -17,7 +19,8 @@ from repro_torch.core import simulator as tsim
 from repro_torch.core import workload as twl
 from repro_torch.core.metrics import summarize
 
-NATIVE = ("paper", "zipf_hot", "zipf", "bursty", "churn", "storm", "stream_churn")
+NATIVE = ("paper", "zipf_hot", "zipf", "bursty", "churn", "storm", "stream_churn",
+          "trace_ycsb")
 
 
 def _cfg(scenario, **kw):
@@ -46,19 +49,6 @@ def test_native_plan_is_reproducible_per_seed():
     c = tsim.run_sim(cfg, 30, seed=4, device="cpu")[1]
     assert torch.equal(a.hits_fog, b.hits_fog) and torch.equal(a.lan_bytes, b.lan_bytes)
     assert not torch.equal(a.coherence_updates, c.coherence_updates)
-
-
-@pytest.mark.parametrize("scenario", ["poisson", "trace_ycsb"])
-def test_native_poisson_and_trace_wait_for_their_slice(scenario):
-    cfg = torch_config(_cfg(scenario))
-    with pytest.raises(NotImplementedError, match="slice"):
-        tsim.run_sim(cfg, 2, device="cpu")
-
-
-def test_replicate_policy_waits_for_its_slice():
-    cfg = torch_config(_cfg("paper", insert_policy="replicate"))
-    with pytest.raises(NotImplementedError, match="replicate"):
-        tsim.run_sim(cfg, 2, device="cpu")
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -1,0 +1,21 @@
+"""The port's fused engine and its reference engine against JAX's, bitwise,
+on replayed draws at seeds 0 and 1: the replicate insert policy (see
+``torch_parity``), where every hearer upserts every broadcast row."""
+import pytest
+from torch_parity import POLICY, case_seeds, check_reference, check_series, check_summary
+
+
+@pytest.mark.parametrize("backend", [None, "plain"])
+@pytest.mark.parametrize("case,seed", case_seeds(POLICY))
+def test_series_bitwise(case, seed, backend):
+    check_series(case, backend, seed)
+
+
+@pytest.mark.parametrize("case,seed", case_seeds(POLICY))
+def test_summary(case, seed):
+    check_summary(case, seed)
+
+
+@pytest.mark.parametrize("case,seed", case_seeds(POLICY))
+def test_reference_engine_bitwise(case, seed):
+    check_reference(case, seed)

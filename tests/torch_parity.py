@@ -11,7 +11,8 @@ Not a test module: it imports both packages, which only tests may do.
   the replay format of ``repro_torch.core.replay``.  No JAX file changes.
 * ``jax_series``/``jax_state_arrays`` flatten JAX results to numpy.
 * ``replay_fixture_arrays``/``write_replay_fixture`` build the committed
-  replay files that ``chip_smoke.py`` runs on the card;
+  replay files that ``chip_smoke.py`` runs on the card, every conformance
+  case at seeds 0 and 1 (``fixture_path``);
   ``serve_fixture``/``write_serve_fixture`` the serving ones (Granite-8B's
   and Granite-3-8B's smoke configs);
   ``ssm_fixture``/``write_ssm_fixture`` the Mamba2 one (``jax_ssm_run``).
@@ -37,7 +38,7 @@ from repro_torch.core import workload as twl
 from repro_torch.core.metrics import EMBODIMENT_FIELDS, field_names, summarize
 from repro_torch.core.replay import draws_from_arrays, save_replay
 
-FIXTURE_CASES = ("zipf_outage", "paper_ge")
+FIXTURE_SEEDS = (0, 1)
 FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch", "testdata")
 _PLAN_KEY_FIELDS = ("k_deliver", "k_resp", "k_coll", "rng_next", "state_next")
 
@@ -138,35 +139,57 @@ def jax_case(name: str, seed: int = 0):
 
 
 @functools.lru_cache(maxsize=None)
-def torch_case(name: str, backend, seed: int = 0):
+def torch_case(name: str, backend, seed: int = 0, engine: str = "fused"):
     """The port's series of case ``name`` on JAX's replayed draws (CPU)."""
     from conformance import CASES
 
     c = CASES[name]
     tcfg = torch_config(c.cfg, probe_backend=backend)
-    _, series = tsim.run_sim(tcfg, c.ticks, device="cpu", metrics_every=c.metrics_every,
-                             draws=torch_draws(tcfg, jax_case(name, seed)[0]))
+    _, series = tsim.run_any_engine(tcfg, c.ticks, engine=engine, device="cpu",
+                                    metrics_every=c.metrics_every,
+                                    draws=torch_draws(tcfg, jax_case(name, seed)[0]))
     return series
 
 
-# The 16 conformance cases of the directory policy (all but
-# ``paper_replicate``), in three groups so the test workers share them out.
+# The 17 conformance cases, in four groups so the test workers share them out.
 STREAM = ("paper", "paper_outage", "paper_ge", "stream_churn", "fanout_topk", "trace")
 ZIPF = ("zipf", "zipf_hot", "zipf_outage", "zipf_thinned", "poisson")
 MODULATED = ("bursty", "diurnal", "churn", "storm", "churn_outage")
+POLICY = ("paper_replicate",)
+FIXTURE_CASES = STREAM + ZIPF + MODULATED + POLICY
 
 
-def check_series(name: str, backend) -> None:
+def case_seeds(cases) -> list:
+    """``pytest.param(case, seed)`` for every case at seeds 0 and 1; a seed-0
+    id is the case's name alone, a seed-1 id ends in ``-s1``."""
+    import pytest
+
+    return [pytest.param(c, s, id=c if s == 0 else f"{c}-s1")
+            for s in FIXTURE_SEEDS for c in cases]
+
+
+def check_series(name: str, backend, seed: int = 0) -> None:
     """The port's TickMetrics series equals JAX's bitwise."""
-    assert_series_equal(jax_case(name)[1], torch_case(name, backend), f"{name}/{backend}")
+    assert_series_equal(jax_case(name, seed)[1], torch_case(name, backend, seed),
+                        f"{name}/{backend}/seed{seed}")
 
 
-def check_summary(name: str) -> None:
+def check_reference(name: str, seed: int = 0) -> None:
+    """The port's reference engine emits JAX's fused series bitwise (JAX's
+    reference emits the same), and so the port's own fused series."""
+    ref = torch_case(name, None, seed, "reference")
+    assert_series_equal(jax_case(name, seed)[1], ref, f"{name}/reference/seed{seed}")
+    fused = torch_case(name, None, seed)
+    assert_series_equal({f: getattr(fused, f).numpy() for f in field_names()}, ref,
+                        f"{name}/reference vs fused/seed{seed}")
+
+
+def check_summary(name: str, seed: int = 0) -> None:
     """``summarize``: integer fields exactly; float fields to rtol 1e-6,
     because the two frameworks may add up a float32 series in different
     orders (the per-tick series themselves are bitwise equal)."""
-    want = jax_case(name)[2]
-    got = summarize(torch_case(name, None))
+    want = jax_case(name, seed)[2]
+    got = summarize(torch_case(name, None, seed))
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         if isinstance(w, int):
@@ -215,25 +238,33 @@ def as_numpy(t, like: np.ndarray | None = None) -> np.ndarray:
     return a
 
 
-def replay_fixture_arrays(case: str) -> tuple[tsim.SimConfig, dict]:
+def fixture_path(case: str, seed: int = 0, directory: str = FIXTURE_DIR) -> str:
+    """``replay_<case>.npz`` at seed 0, ``replay_<case>_s<seed>.npz`` else."""
+    suffix = "" if seed == 0 else f"_s{seed}"
+    return os.path.join(directory, f"replay_{case}{suffix}.npz")
+
+
+def replay_fixture_arrays(case: str, seed: int = 0) -> tuple[tsim.SimConfig, dict]:
     """(port config, arrays) of the replay file of conformance ``case`` at
-    seed 0: JAX's draws and its fused-engine series."""
+    ``seed``: JAX's draws and its fused-engine series, one row a tick."""
     from conformance import CASES
 
     c = CASES[case]
-    arrays = jax_draw_arrays(c.cfg, c.ticks, seed=0)
-    _, series = jsim.run_sim(c.cfg, c.ticks, seed=0, engine="fused")
-    arrays.update({f"metrics.{k}": v for k, v in jax_series(series).items()})
+    draws, series, _ = jax_case(case, seed)
+    if c.metrics_every != 1:
+        _, thick = jsim.run_sim(c.cfg, c.ticks, seed=seed, engine="fused")
+        series = jax_series(thick)
+    arrays = dict(draws)
+    arrays.update({f"metrics.{k}": v for k, v in series.items()})
     return torch_config(c.cfg), arrays
 
 
-def write_replay_fixture(case: str, directory: str = FIXTURE_DIR) -> str:
-    """Write ``replay_<case>.npz``; returns its path."""
-    tcfg, arrays = replay_fixture_arrays(case)
-    path = os.path.join(directory, f"replay_{case}.npz")
+def write_replay_fixture(case: str, seed: int = 0, directory: str = FIXTURE_DIR) -> str:
+    """Write the replay file of ``case`` at ``seed``; returns its path."""
+    tcfg, arrays = replay_fixture_arrays(case, seed)
+    path = fixture_path(case, seed, directory)
     save_replay(path, tcfg, arrays)
     return path
-
 
 
 
@@ -402,8 +433,9 @@ def write_ssm_fixture(path: str = SSM_FIXTURE) -> str:
 
 
 if __name__ == "__main__":
-    for name in FIXTURE_CASES:
-        print(write_replay_fixture(name))
+    for seed in FIXTURE_SEEDS:
+        for name in FIXTURE_CASES:
+            print(write_replay_fixture(name, seed))
     for arch in SERVE_FIXTURES:
         print(write_serve_fixture(arch))
     print(write_ssm_fixture())
