@@ -20,6 +20,9 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    that reach each of their instantiations (``ops.row_plans``: W in {1, 2,
    3, 4, 8} with D in {3, 8}, tables 16-byte aligned and 4 bytes past a
    boundary, which takes the scalar path) and a lookup on S = 8,192; with
+   the dense tick-200 sweep and write wave cut to the nodes of rank 1 of
+   4 (250 caches; the sweep by all 1,000 rows), the shapes a shard gives
+   ``flic_update`` and ``flic_insert``; with
    the median time of 20 runs of each, the card's time bound for the bytes
    that those inputs need, and ``launch_floor_ms``, the time of an empty
    launch (``torch.cuda._sleep(0)``) under the same timing;
@@ -47,6 +50,26 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    trace on the card must equal ``materialize_trace``'s numpy arrays;
 6d. ``reference``: the reference engine (``run_any_engine(engine=
    "reference")``) on every seed-0 replay, bitwise equal to JAX's series;
+6e. ``distributed``: the parity engine (``core/distributed.py``) on the
+   dense cell, 600 ticks with the kernels, on spawned ranks over
+   ``torch.distributed``: world 1 over NCCL and world 4 over gloo (four
+   processes on the one card; the card's compute mode must admit them);
+   each series bitwise equal to the dense cell's fused run but for
+   ``wire_bytes``, which must equal the ring model; every rank launches
+   ``flic_update`` once a tick; ticks/s, host ms a tick, modelled bytes a
+   tick and each rank's peak memory;
+6f. ``distributed_replay``: the 17 seed-0 JAX replays through the parity
+   engine at world 4, bitwise equal to JAX's series, each rank launching
+   the kernels its config reaches;
+6g. ``sharded``: the bandwidth-lean engine (``core/sharded.py``) on the
+   dense cell at world 1 and world 4, held to the ``zipf_hot`` tolerance
+   tier against the fused run (exact reads, writes and rejoins, write
+   conservation, miss and stale ratios within 0.12 and 0.10), its
+   modelled wire bytes at world 4 at most half the parity engine's;
+   ``flic_update`` once and ``flic_insert`` at least twice a tick on every
+   rank.  6e-6g run in two spawned groups, one per world (the world-4
+   group runs the replays too), each announced by a ``multi_rank_group``
+   line with its wall time;
 7. ``serve``: the second main path, Granite-8B at full width (random
    bfloat16 weights from seed 0) serving 8 requests (4 prompts of 512
    tokens, each twice, 32 new tokens, 4 slots, page 16) through
@@ -613,6 +636,33 @@ def coverage_cases(torch, device) -> dict:
     return {"flic_insert": insert, "flic_lookup": lookup}
 
 
+SHARD_WORLD, SHARD_RANK = 4, 1   # the gloo groups on the one card; the rank the shard cases cut
+
+
+def rank_nodes(n: int) -> slice:
+    """The nodes of rank ``SHARD_RANK`` of ``SHARD_WORLD`` in an N-node fog."""
+    per = n // SHARD_WORLD
+    return slice(SHARD_RANK * per, (SHARD_RANK + 1) * per)
+
+
+def shard_update_case(args) -> dict:
+    """The dense tick-200 sweep as rank 1 of 4 of the distributed engine
+    makes it: its 250 caches by all R = 1,000 rows, the live mask's rows
+    of its nodes."""
+    nodes = rank_nodes(args[0].shape[0])
+    tables = [a[nodes].contiguous() for a in args[:5]]
+    cut = tables + list(args[5:9]) + [args[9][nodes].contiguous(), args[10]]
+    return {f"shard_rank{SHARD_RANK}of{SHARD_WORLD}_t200": cut}
+
+
+def shard_insert_case(args) -> dict:
+    """The dense tick-200 write wave cut to rank 1 of 4's nodes: the shape
+    of a sharded rank's write wave (its 250 rows into its 250 caches)."""
+    nodes = rank_nodes(args[0].shape[0])
+    return {f"shard_rank{SHARD_RANK}of{SHARD_WORLD}_t200_writes":
+            [a[nodes].contiguous() for a in args[:15]] + [args[15]]}
+
+
 def kernel_phase(torch, device, cfgs, cycles_per_ms) -> dict:
     """Each kernel on the inputs the main path gives it (copied from one
     tick of each cell: dense tick 200, before the outage; city tick 60;
@@ -646,6 +696,8 @@ def kernel_phase(torch, device, cfgs, cycles_per_ms) -> dict:
                         "replicate_t20": rep["flic_lookup", 20],
                         "trace_t100": trc["flic_lookup", 100]},
     }
+    cases["flic_update"].update(shard_update_case(dense["flic_update", 200]))
+    cases["flic_insert"].update(shard_insert_case(dense["flic_insert", 400]))
     for more in (random_cases(torch, device), coverage_cases(torch, device)):
         for name, by_label in more.items():
             cases[name].update(by_label)
@@ -879,7 +931,172 @@ def engine_phase(torch, device, name, cfg, ticks, must_launch, per_tick=None,
          series_equal=True, launches=launches,
          summary={k: summary[k] for k in HEADLINE})
     emit("profile", cell=name, **tick_profile(torch, device, cfg, rate_cuda, profile_ticks))
-    return launches, summary
+    return launches, summary, s_cuda
+
+
+# ---------------------------------------------------------------------------
+# Phases 6e-6g: the two multi-rank engines on torch.distributed.
+# ---------------------------------------------------------------------------
+
+# The zipf_hot row of tests/conformance.py's SHARDED_CASES (that module
+# imports JAX): |sharded - fused| bounds on the miss and stale ratios.
+SHARDED_MISS_EPS, SHARDED_STALE_EPS = 0.12, 0.10
+GROUP_TIMEOUT_S = 600.0
+PROFILE_TICKS = 10   # a second, profiled run of each engine cell: device time per rank
+
+
+def compute_mode() -> str:
+    """The card's compute mode; a mode that admits one process at most makes
+    several ranks on the card impossible, and the phases fail saying so."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    if mode in ("Exclusive_Process", "Prohibited"):
+        raise AssertionError(f"compute mode {mode}: the card admits no second process, so "
+                             f"{SHARD_WORLD} ranks cannot share it")
+    return mode
+
+
+def rank_figures(res, ticks: int, profiled) -> dict:
+    """Rates and memory of ``res``; device busy ms a tick of each rank from
+    the ``profiled`` run of the same cell, and the card's idle share: one
+    minus the ranks' summed busy time over the unprofiled tick time."""
+    tick_ms = 1e3 * max(res.host_s) / ticks
+    busy = [None if b is None else 1e3 * b / PROFILE_TICKS for b in profiled.device_busy_s]
+    measured = all(b is not None and b > 0 for b in busy)
+    return dict(ticks_per_s=ticks / max(res.host_s),
+                host_ms_per_tick=[1e3 * s / ticks for s in res.host_s],
+                device_busy_ms_per_tick=busy if measured else "not measured",
+                device_idle_share=1.0 - sum(busy) / tick_ms if measured else "not measured",
+                peak_bytes=res.peak_bytes, launches=res.launches)
+
+
+def multi_rank_runs(torch, dense_cfg, paths, ticks: int = 600):
+    """Both engines on the dense cell (native draws, seed 0, the kernels) in
+    two spawned groups: world 1 over NCCL, then world 4 over gloo (four
+    processes on the one card), which also runs the 17 seed-0 JAX replays
+    through the parity engine.  A group pays its spawn and set-up once.
+    Returns ``({world: {engine: RunResult}}, [(path, run, expected, result)])``."""
+    from repro_torch.core.distributed import EngineRun, run_group
+    from repro_torch.core.replay import load_replay
+
+    mode = compute_mode()
+    cfg = dataclasses.replace(dense_cfg, probe_backend="cuda")
+    cells = [EngineRun("distributed", cfg, ticks), EngineRun("sharded", cfg, ticks),
+             EngineRun("distributed", cfg, PROFILE_TICKS, profile=True),
+             EngineRun("sharded", cfg, PROFILE_TICKS, profile=True)]
+    seed0 = [p for p in paths if not re.search(r"_s\d+\.npz$", p.name)]
+    replays = []
+    for path in seed0:
+        rcfg, draws, expected = load_replay(path, "cpu")
+        replays.append((path, EngineRun("distributed",
+                                        dataclasses.replace(rcfg, probe_backend="cuda"),
+                                        len(draws), draws=draws), expected))
+    by_world, replay_results = {}, []
+    for world, backend in ((1, "nccl"), (SHARD_WORLD, "gloo")):
+        runs = cells + ([r for _, r, _ in replays] if world > 1 else [])
+        t0 = time.perf_counter()
+        res = run_group(runs, world=world, backend=backend, timeout=GROUP_TIMEOUT_S)
+        emit("multi_rank_group", world=world, backend=backend, compute_mode=mode,
+             runs=len(runs), wall_s=time.perf_counter() - t0,
+             rank_host_s=[sum(r.host_s[k] for r in res) for k in range(world)])
+        by_world[world] = {"distributed": res[0], "sharded": res[1],
+                           "distributed_profile": res[2], "sharded_profile": res[3]}
+        if world > 1:
+            replay_results = [(p, r, e, x) for (p, r, e), x in zip(replays, res[4:])]
+    return by_world, replay_results
+
+
+def distributed_phase(torch, by_world, dense_cfg, fused_series, ticks: int = 600) -> None:
+    """The parity engine's dense runs: each series bitwise equal to the fused
+    dense run but for ``wire_bytes``, which must equal the ring model; every
+    rank launches ``flic_update`` once a tick."""
+    from repro_torch.core.distributed import parity_wire_bytes
+
+    for world, runs in by_world.items():
+        res = runs["distributed"]
+        series_equal(torch, res.series, fused_series, f"distributed world {world}")
+        wire = parity_wire_bytes(dense_cfg, world)
+        if not bool((res.series.wire_bytes == wire).all()):
+            raise AssertionError(f"distributed world {world}: wire_bytes is not {wire} a tick")
+        wrong = [(r, k["flic_update"]) for r, k in enumerate(res.launches)
+                 if k["flic_update"] != ticks]
+        if wrong:
+            raise AssertionError(f"distributed world {world}: flic_update launches {wrong}, "
+                                 f"expected {ticks} on each rank")
+        emit("distributed", world=world, ticks=ticks, series_equal_to_fused=True,
+             wire_bytes_per_tick=wire,
+             **rank_figures(res, ticks, runs["distributed_profile"]))
+
+
+def distributed_replay_phase(torch, replay_results) -> None:
+    """The 17 seed-0 JAX replays through the parity engine at world 4: each
+    series bitwise equal to JAX's; each rank launches the kernels its
+    config reaches (``flic_insert`` always, ``flic_update`` for a mutable
+    workload under the directory policy)."""
+    import numpy as np
+
+    from repro_torch.core.metrics import EMBODIMENT_FIELDS
+
+    if len(replay_results) != 17:
+        raise AssertionError(f"expected 17 seed-0 replays, got {len(replay_results)}")
+    for path, run, want, res in replay_results:
+        for f, v in want.items():
+            if f not in EMBODIMENT_FIELDS and not np.array_equal(
+                    getattr(res.series, f).cpu().numpy(), v):
+                raise AssertionError(f"distributed_replay {path.name}: TickMetrics.{f} "
+                                     f"diverged from JAX")
+        need = ["flic_insert"]
+        if run.cfg.insert_policy == "directory" and run.cfg.workload.mutable:
+            need.append("flic_update")
+        missing = [(r, k) for r, launch in enumerate(res.launches) for k in need if not launch[k]]
+        if missing:
+            raise AssertionError(f"distributed_replay {path.name}: (rank, kernel) not "
+                                 f"launched: {missing}")
+        emit("distributed_replay", file=path.name, world=SHARD_WORLD, ticks=run.ticks,
+             equal_to_jax=True, ticks_per_s=run.ticks / max(res.host_s),
+             launches=res.launches[0])
+
+
+def sharded_phase(torch, by_world, fused_series, ticks: int = 600) -> None:
+    """The bandwidth-lean engine's dense runs, held to the ``zipf_hot``
+    tolerance tier against the fused dense run: exact reads, writes_gen
+    and churn_rejoins, write conservation, the eps; at world 4 its
+    modelled wire bytes positive and at most half the parity engine's;
+    every rank launches ``flic_update`` once a tick and ``flic_insert`` at
+    least twice (its writes and its fills)."""
+    from repro_torch.core.metrics import summarize
+
+    fs = summarize(fused_series)
+    parity_wire = summarize(by_world[SHARD_WORLD]["distributed"].series)["wire_bytes_per_tick"]
+    for world, runs in by_world.items():
+        res = runs["sharded"]
+        ss = summarize(res.series)
+        label = f"sharded world {world}"
+        for field in ("ticks", "reads", "writes_gen", "churn_rejoins"):
+            if ss[field] != fs[field]:
+                raise AssertionError(f"{label}: {field} {ss[field]} != fused {fs[field]}")
+        budget = (ss["writes_drained"] + ss["final_queue_depth"] + ss["queue_dropped"]
+                  + ss["writes_coalesced"])
+        if ss["writes_gen"] != budget:
+            raise AssertionError(f"{label}: writes_gen {ss['writes_gen']} != {budget}")
+        d_miss = abs(ss["read_miss_ratio"] - fs["read_miss_ratio"])
+        d_stale = abs(ss["stale_read_ratio"] - fs["stale_read_ratio"])
+        if d_miss > SHARDED_MISS_EPS or d_stale > SHARDED_STALE_EPS:
+            raise AssertionError(f"{label}: miss delta {d_miss}, stale delta {d_stale} over "
+                                 f"{SHARDED_MISS_EPS}, {SHARDED_STALE_EPS}")
+        wire = ss["wire_bytes_per_tick"]
+        if world > 1 and not 0 < wire <= 0.5 * parity_wire:
+            raise AssertionError(f"{label}: wire bytes {wire} a tick, parity {parity_wire}")
+        wrong = [(r, k["flic_update"], k["flic_insert"]) for r, k in enumerate(res.launches)
+                 if k["flic_update"] != ticks or k["flic_insert"] < 2 * ticks]
+        if wrong:
+            raise AssertionError(f"{label}: (rank, flic_update, flic_insert) launches {wrong}")
+        emit("sharded", world=world, ticks=ticks, wire_bytes_per_tick=wire,
+             parity_wire_bytes_per_tick=parity_wire, miss_delta=d_miss, stale_delta=d_stale,
+             summary={k: ss[k] for k in HEADLINE}, fused={k: fs[k] for k in HEADLINE},
+             **rank_figures(res, ticks, runs["sharded_profile"]))
 
 
 # ---------------------------------------------------------------------------
@@ -2275,27 +2492,37 @@ def main() -> None:
     elapsed("replay")
 
     cell_launches = {}
-    cell_launches["dense"], _ = engine_phase(torch, device, "dense", dense_cfg, 600,
-                                             FLIC_KERNELS)
-    cell_launches["city"], city = engine_phase(torch, device, "city", city_cfg, 120,
-                                               ("flic_insert",))
+    cell_launches["dense"], _, dense_series = engine_phase(torch, device, "dense", dense_cfg,
+                                                           600, FLIC_KERNELS)
+    cell_launches["city"], city, _ = engine_phase(torch, device, "city", city_cfg, 120,
+                                                  ("flic_insert",))
     if city["queue_dropped"] <= 0:
         raise AssertionError("city: the writer ring was expected to overflow")
     n = replicate_cfg.n_nodes
-    cell_launches["replicate"], _ = engine_phase(
+    cell_launches["replicate"], _, _ = engine_phase(
         torch, device, "replicate", replicate_cfg, 30, ("flic_insert", "flic_lookup"),
         per_tick={"flic_insert": n + 1, "flic_update": 0, "flic_lookup": 1},
         profile_ticks=5)    # ~2,500 launches a tick: 5 ticks keep the trace short
-    cell_launches["poisson"], _ = engine_phase(
+    cell_launches["poisson"], _, _ = engine_phase(
         torch, device, "poisson", poisson_cfg, 300, FLIC_KERNELS,
         per_tick={"flic_insert": 5, "flic_update": 4, "flic_lookup": 1})
     trace_on_card(torch, device, trace_cfg)
-    cell_launches["trace"], _ = engine_phase(
+    cell_launches["trace"], _, _ = engine_phase(
         torch, device, "trace", trace_cfg, 300, FLIC_KERNELS,
         per_tick={"flic_insert": 2, "flic_update": 1, "flic_lookup": 1})
     elapsed("engine cells")
     reference_phase(torch, device, replays)
     elapsed("reference")
+    by_world, replay_results = multi_rank_runs(torch, dense_cfg, replays)
+    distributed_phase(torch, by_world, dense_cfg, dense_series)
+    distributed_replay_phase(torch, replay_results)
+    sharded_phase(torch, by_world, dense_series)
+    for world, runs in by_world.items():
+        for engine in ("distributed", "sharded"):
+            res = runs[engine]
+            cell_launches[f"{engine}_w{world}"] = {
+                k: sum(rank[k] for rank in res.launches) for k in FLIC_KERNELS}
+    elapsed("multi-rank engines")
 
     serve = serve_phase(torch, device)
     pres = paged_kernel_phase(torch, device, serve.pop("attn_args"), cycles_per_ms)

@@ -51,6 +51,21 @@ def field_names() -> tuple[str, ...]:
     return tuple(f.name for f in dataclasses.fields(TickMetrics))
 
 
+def allgather_bytes(p: int, n_elems: int, elem_bytes: int) -> float:
+    """Modelled wire cost of a ring all_gather over ``p`` shards, each
+    contributing ``n_elems`` elements: every block makes ``p - 1`` hops,
+    ``p * (p - 1) * n_elems * elem_bytes`` in all.  Zero at ``p == 1``."""
+    return float(p * (p - 1) * n_elems * elem_bytes)
+
+
+def allreduce_bytes(p: int, n_elems: int, elem_bytes: int) -> float:
+    """Modelled wire cost of a ring all_reduce over ``p`` shards of a tensor
+    of ``n_elems`` elements: reduce-scatter and all-gather each move
+    ``(p - 1) / p`` of it per shard, ``2 * (p - 1) * n_elems * elem_bytes`` in
+    all.  Zero at ``p == 1``."""
+    return float(2 * (p - 1) * n_elems * elem_bytes)
+
+
 def accumulate(agg: TickMetrics, m: TickMetrics) -> TickMetrics:
     """Fold one tick into a window aggregate: flows summed, gauges last."""
     return TickMetrics(**{

@@ -72,6 +72,26 @@ def draws_from_arrays(cfg: SimConfig, arrays: dict, device) -> list[TickDraws]:
     return out
 
 
+def draws_to_arrays(draws: list[TickDraws]) -> dict[str, np.ndarray]:
+    """The inverse of ``draws_from_arrays``: ``t``/``plan.*``/``u_*`` stacked
+    into numpy arrays (how the multi-process engines hand draws to their
+    ranks)."""
+    def stack(tensors):
+        return np.stack([x.detach().cpu().numpy() for x in tensors])
+
+    out = {"t": np.asarray([d.t for d in draws], np.int64)}
+    for f in dataclasses.fields(wl.RequestPlan):
+        if f.name != "state_next":
+            out[f"plan.{f.name}"] = stack(getattr(d.plan, f.name) for d in draws)
+    for f in dataclasses.fields(wl.PlanState):
+        out[f"plan.state_next.{f.name}"] = stack(getattr(d.plan.state_next, f.name)
+                                                 for d in draws)
+    for name in ("u_ge_up", "u_ge_dn", "u_deliver", "u_resp", "u_coll"):
+        if getattr(draws[0], name) is not None:
+            out[name] = stack(getattr(d, name) for d in draws)
+    return out
+
+
 def save_replay(path, cfg: SimConfig, arrays: dict) -> None:
     np.savez_compressed(path, config=np.asarray(config_to_json(cfg)), **arrays)
 

@@ -22,7 +22,8 @@ buffer donation); ``run_sim`` never reuses a state it has stepped.
 Under ``insert_policy="replicate"`` every hearer upserts every broadcast
 row (``_merge_replicate``): R batched upserts a write wave, so R
 ``flic_insert`` launches on the card.  ``run_any_engine`` also runs the
-reference engine (``core/simulator_ref.py``).
+reference engine (``core/simulator_ref.py``) and the two multi-rank engines
+(``core/distributed.py``, ``core/sharded.py``).
 """
 from __future__ import annotations
 
@@ -303,19 +304,24 @@ def _insert_own_rows(caches: CacheState, rows: CacheLine, now) -> CacheState:
 
 
 def _merge_replicate(caches: CacheState, rows: CacheLine, delivered: torch.Tensor,
-                     now, backend: str | None = None) -> CacheState:
+                     now, backend: str | None = None,
+                     node_ids: torch.Tensor | None = None) -> CacheState:
     """The replicate policy's gossip round as R batched upserts.
 
     ``coherence.merge_broadcasts`` upserts the R rows at each node in order
     r = 0..R-1, and node i's r-th upsert reads only node i's cache; so R
     calls of ``insert_rows`` compute the same caches.  Call r gives node i
     row r, live where it was delivered or node i is its origin, dirty only
-    at its origin.  The evictions are dropped, as JAX's engine drops them.
+    at its origin.  ``node_ids`` is the global id of each cache lane (a
+    shard of the distributed engine passes its own; default ``arange(N)``).
+    The evictions are dropped, as JAX's engine drops them.
     """
     n = caches.tags.shape[0]
     r = rows.key.shape[0]
     dev = rows.key.device
-    own = rows.origin[:, None] == torch.arange(n, dtype=I32, device=dev)[None, :]  # (R, N)
+    if node_ids is None:
+        node_ids = torch.arange(n, dtype=I32, device=dev)
+    own = rows.origin[:, None] == node_ids.to(I32)[None, :]                       # (R, N)
     valid = rows.valid[:, None] & (delivered.T | own)
     dirty = rows.dirty[:, None] & own
 
@@ -728,12 +734,16 @@ def run_sim(cfg: SimConfig, ticks: int, seed: int = 0, *, device=None,
 
 def run_any_engine(cfg: SimConfig, ticks: int, seed: int = 0, *, engine: str = "fused",
                    metrics_every: int = 1, draws: Optional[Iterable[TickDraws]] = None,
-                   device=None) -> tuple[SimState, TickMetrics]:
+                   device=None, world: Optional[int] = None,
+                   backend: Optional[str] = None):
     """Engine-agnostic runner of the conformance contract (DESIGN.md §8).
 
-    ``"fused"`` and ``"reference"`` run here through ``run_sim``; the mesh
-    engines ``"distributed"`` and ``"sharded"`` are not ported yet.  On
-    every engine ``ticks`` must be a multiple of ``metrics_every``.
+    ``"fused"`` and ``"reference"`` run here through ``run_sim``;
+    ``"distributed"`` (bitwise, ``core/distributed.py``) and ``"sharded"``
+    (tolerance tier, ``core/sharded.py``) run over ``world`` spawned ranks
+    on ``backend`` ("gloo" or "nccl"), both of which they require.  Every
+    engine returns (final state, ``TickMetrics`` series), and on every
+    engine ``ticks`` must be a multiple of ``metrics_every``.
     """
     if metrics_every != 1 and ticks % metrics_every != 0:
         raise ValueError(
@@ -742,10 +752,14 @@ def run_any_engine(cfg: SimConfig, ticks: int, seed: int = 0, *, engine: str = "
             f"metrics_every ({metrics_every})"
         )
     if engine in ("distributed", "sharded"):
-        item = 5 if engine == "distributed" else 6
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet (ROADMAP.md Queue 1 item {item})"
-        )
+        if world is None or backend is None:
+            raise ValueError(f"engine={engine!r} needs world= and backend= ('gloo' or 'nccl')")
+        from repro_torch.core.distributed import EngineRun, run_group
+
+        res = run_group([EngineRun(engine, cfg, ticks, seed, metrics_every,
+                                   None if draws is None else list(draws))],
+                        world=world, backend=backend, device=device)[0]
+        return res.state, res.series
     return run_sim(cfg, ticks, seed, device=device, metrics_every=metrics_every,
                    draws=draws, engine=engine)
 

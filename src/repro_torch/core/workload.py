@@ -15,8 +15,10 @@ plan; it never generates one.  Plans come from two sources:
 * JAX's own ``plan_tick``, replayed through ``simulator.TickDraws``.
 
 The trace generators (``materialize_trace``) are host numpy, seeded as
-JAX's, so a ``(T, N)`` trace is the same array in both packages.  The
-consistent-hash ring comes with the sharded engine.
+JAX's, so a ``(T, N)`` trace is the same array in both packages.  So is
+the sharded engine's consistent-hash ring (``hash_ring``,
+``ring_candidates``: host numpy), and ``route_keys`` homes key ids on it
+with JAX's bits.
 """
 from __future__ import annotations
 
@@ -404,6 +406,98 @@ def _neighbor_table(n: int, k: int, device: torch.device) -> torch.Tensor:
     j = torch.arange(k, dtype=torch.int64, device=device)
     offs = (j // 2 + 1) * (1 - 2 * (j % 2))
     return (torch.arange(n, dtype=torch.int64, device=device)[:, None] + offs[None, :]) % n
+
+
+# --------------------------------------------------------------------------
+# Consistent-hash key -> node routing (the sharded engine).
+#
+# Host numpy, deterministic in its arguments, built once per shape: every
+# shard agrees on every route with no communication, and a churn epoch
+# remaps only the keys whose first online candidate changed.
+# --------------------------------------------------------------------------
+
+RING_SALT = 0x0C0F5A1E   # separates ring positions from the key-hash domain
+RING_VNODES = 16         # virtual positions per node on the ring
+RING_DEPTH = 4           # fallback owners kept per key
+
+
+def _splitmix32_np(x) -> np.ndarray:
+    """numpy ``splitmix32`` (the bits of ``utils.hashing``)."""
+    x = np.asarray(x, np.uint32)
+    x = (x + np.uint32(0x9E3779B9)).astype(np.uint32)
+    x = ((x ^ (x >> np.uint32(16))) * np.uint32(0x85EBCA6B)).astype(np.uint32)
+    x = ((x ^ (x >> np.uint32(13))) * np.uint32(0xC2B2AE35)).astype(np.uint32)
+    return (x ^ (x >> np.uint32(16))).astype(np.uint32)
+
+
+def _hash2_np(a, b) -> np.ndarray:
+    """numpy ``hash2_u32`` (the bits of ``utils.hashing``)."""
+    a = np.asarray(a, np.uint32)
+    b = np.asarray(b, np.uint32)
+    mix = (b + np.uint32(0x9E3779B9)
+           + (a << np.uint32(6)) + (a >> np.uint32(2))).astype(np.uint32)
+    return _splitmix32_np(_splitmix32_np(a) ^ mix)
+
+
+@functools.lru_cache(maxsize=32)
+def hash_ring(n: int, vnodes: int = RING_VNODES) -> tuple[np.ndarray, np.ndarray]:
+    """The sorted virtual-node ring of an N-node fog: ``(positions, owners)``,
+    ``n * vnodes`` uint32 positions in ascending order and the int32 owner
+    of each."""
+    if n < 1 or vnodes < 1:
+        raise ValueError(f"hash_ring needs n >= 1, vnodes >= 1 (got {n}, {vnodes})")
+    node = np.repeat(np.arange(n, dtype=np.uint32), vnodes)
+    vidx = np.tile(np.arange(vnodes, dtype=np.uint32), n)
+    pos = _hash2_np(_hash2_np(node, vidx), np.uint32(RING_SALT))
+    order = np.argsort(pos, kind="stable")
+    return pos[order], node[order].astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def ring_candidates(n: int, key_universe: int, vnodes: int = RING_VNODES,
+                    depth: int = RING_DEPTH) -> np.ndarray:
+    """``(K, L)`` int32: for each key id the first ``L = min(depth, n)``
+    distinct nodes clockwise from its hashed position on the ring, its home
+    first and then its failover order."""
+    depth = min(depth, n)
+    pos, owner = hash_ring(n, vnodes)
+    v = pos.shape[0]
+    kpos = _hash2_np(np.arange(key_universe, dtype=np.uint32), np.uint32(RING_SALT))
+    start = np.searchsorted(pos, kpos, side="left") % v
+    cand = np.full((key_universe, depth), -1, np.int64)
+    count = np.zeros(key_universe, np.int64)
+    for j in range(v):
+        o = owner[(start + j) % v].astype(np.int64)
+        fresh = (cand != o[:, None]).all(axis=1) & (count < depth)
+        rows = np.nonzero(fresh)[0]
+        cand[rows, count[rows]] = o[rows]
+        count[rows] += 1
+        if count.min() >= depth:
+            break
+    if (cand < 0).any():
+        raise AssertionError("the ring walk must reach depth distinct owners")
+    return cand.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def _ring_candidates_on(n: int, key_universe: int, vnodes: int, depth: int,
+                        device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(ring_candidates(n, key_universe, vnodes, depth)).long().to(device)
+
+
+def route_keys(spec: WorkloadSpec, n: int, t: int, key_ids: torch.Tensor,
+               vnodes: int = RING_VNODES, depth: int = RING_DEPTH) -> torch.Tensor:
+    """Home node id (int32) of each key id at tick ``t``: its first ONLINE
+    ring candidate, else the first online node overall."""
+    dev = key_ids.device
+    cand = _ring_candidates_on(n, spec.key_universe, vnodes, depth, dev)
+    c = cand[key_ids.long().clamp(0, spec.key_universe - 1)]        # (..., L)
+    online = online_mask(spec, n, t, dev)
+    ok = online[c]
+    pick = ok.to(torch.int32).argmax(dim=-1)                        # first online
+    home = c.gather(-1, pick[..., None])[..., 0]
+    fallback = online.to(torch.int32).argmax()
+    return torch.where(ok.any(dim=-1), home, fallback).to(torch.int32)
 
 
 # --------------------------------------------------------------------------

@@ -22,9 +22,15 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0], node.lineno
 
 
+# Modules whose ports came late; each must be scanned and imported like the rest.
+LATE_MODULES = ("core/distributed.py", "core/sharded.py", "core/workload.py")
+
+
 def test_port_never_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for late in LATE_MODULES:
+        assert ROOT / "src" / "repro_torch" / late in files, late
     bad = [(str(f.relative_to(ROOT)), root, line) for f in files
            for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, bad
@@ -37,6 +43,8 @@ def test_importing_the_port_loads_no_jax():
         ".".join(f.relative_to(ROOT / "src").with_suffix("").parts)
         for f in (ROOT / "src" / "repro_torch").rglob("*.py") if f.name != "__init__.py")
     assert "repro_torch.models.ssm" in modules and "repro_torch.models.replay" in modules
+    for late in LATE_MODULES:
+        assert "repro_torch." + late[:-3].replace("/", ".") in modules, late
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")

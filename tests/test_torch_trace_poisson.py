@@ -209,13 +209,19 @@ def test_run_any_engine_windows_and_mesh_engines():
     cfg = torch_config(jsim.SimConfig(n_nodes=8, cache_lines=32))
     with pytest.raises(ValueError, match="divisible by metrics_every"):
         tsim.run_any_engine(cfg, 10, engine="reference", metrics_every=3, device="cpu")
-    for engine, item in (("distributed", 5), ("sharded", 6)):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+    for engine in ("distributed", "sharded"):
+        with pytest.raises(ValueError, match="needs world= and backend="):
             tsim.run_any_engine(cfg, 10, engine=engine, device="cpu")
+    with pytest.raises(ValueError, match="supports mutable zipf-cadence"):
+        tsim.run_any_engine(cfg, 10, engine="sharded", world=2, backend="gloo", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         tsim.run_any_engine(cfg, 10, engine="pipelined", device="cpu")
     _, a = tsim.run_any_engine(cfg, 10, 2, engine="reference", metrics_every=5, device="cpu")
     _, b = tsim.run_any_engine(cfg, 10, 2, engine="fused", metrics_every=5, device="cpu")
+    _, c = tsim.run_any_engine(cfg, 10, 2, engine="distributed", metrics_every=5,
+                               world=2, backend="gloo", device="cpu")
     assert a.reads.shape == (2,)
     for f in dataclasses.fields(a):
         assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+        if f.name != "wire_bytes":
+            assert torch.equal(getattr(c, f.name), getattr(b, f.name)), f.name
