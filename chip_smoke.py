@@ -129,7 +129,27 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     geometry, timed and bound;
 15. ``ssm_replay``: the committed JAX Mamba2 fixture (float32 and
     bfloat16) through the port with the kernel, teacher-forced, within the
-    CPU tests' tolerances.
+    CPU tests' tolerances;
+16. ``train``: the fourth main path, Mamba2-370M trained at full width and
+    depth (random weights from seed 0) on ``synthetic_batch`` at 4 x 2,048
+    tokens, remat on, 8 steps through ``Trainer`` with one checkpoint save:
+    ``ssd_scan`` 96 and ``ssd_scan_bwd`` 48 launches a step, a falling
+    loss; first one step's gradient with the kernels against the plain
+    scan and its plain backward (the loss bitwise equal); step ms,
+    tokens/s, peak memory, a profiled step;
+17. ``kernels`` (``ssd_scan_bwd``): the backward kernel against its plain
+    version (``g_states`` and ``g_init`` bitwise, ``g_decay`` within its
+    stated tolerance, two calls bitwise equal) on layer 0 of the train
+    step, on the ``ssm`` phase's published-init prefill and on 128 chunks
+    of decays in [0.95, 1), timed and bound;
+18. ``train_dense``: Granite-8B at full width with depth cut to 4 layers,
+    4 x 2,048 tokens, 4 steps with remat: loss, step ms, peak memory, a
+    profiled step; then the same steps through ``Trainer`` with a fault
+    injected at step 3 and recovered from step 2's checkpoint, its params
+    against the uninterrupted run's;
+19. ``train_replay``: the committed JAX training fixtures (Granite-8B and
+    Mamba2 smoke configs, float32 and bfloat16) through the port's train
+    step with the kernels, within the CPU tests' tolerances.
 
 After each engine cell (``dense``, ``city``, ``replicate``, ``poisson``,
 ``trace``) a ``profile`` line checks that a tick never synchronises the host
@@ -167,7 +187,10 @@ REPLACES = {   # the TPU kernel each CUDA kernel replaces (the def of its pallas
     "paged_attention": "src/repro/kernels/paged_attention.py:74",
     "flic_merge": "src/repro/kernels/flic_merge.py:36",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:45",
+    # no TPU kernel: JAX's gradient is XLA's autodiff of the model's lax.scan
+    "ssd_scan_bwd": "none (XLA autodiff of src/repro/models/ssm.py:131)",
 }
+
 
 
 def ptxas_report(log: str) -> dict:
@@ -2281,7 +2304,8 @@ def ssm_phase(torch, device) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"ssm published init: {name} of the kernel prefill differs "
                                  "from the plain prefill's")
-    pdecay = pshadow["args"][1]
+    published_args = pshadow["args"]
+    pdecay = published_args[1]
     published = dict(
         bitwise_equal_to_plain=["logits", "conv", "ssd"], scan_calls_checked=pshadow["calls"],
         zero_decay_share_mean=statistics.fmean(pshadow["zero"]),
@@ -2336,7 +2360,8 @@ def ssm_phase(torch, device) -> dict:
          decode_vs_prefill=consistency, peak_memory_bytes=peak,
          profile_decode_step=prof_decode, profile_prefill=prof_prefill,
          tokens_row0=krun["tokens"][0].tolist())
-    return dict(launches=launches["ssd_scan"], scan_args=shadow["args"])
+    return dict(launches=launches["ssd_scan"], scan_args=shadow["args"],
+                published_args=published_args)
 
 
 def ssm_replay_phase(torch, device) -> None:
@@ -2427,6 +2452,336 @@ def scan_kernel_phase(torch, device, served, cycles_per_ms) -> dict:
     return res
 
 
+TRAIN_ARCH = "mamba2_370m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+TRAIN_LR = dict(peak_lr=1e-3, warmup_steps=1)   # launch/train.py's warm-up rule for 8 steps
+DENSE_ARCH, DENSE_LAYERS, DENSE_STEPS = "granite_8b", 4, 4
+DENSE_CKPT_EVERY, DENSE_FAULT_AT = 2, 3   # the fault restores step 2's checkpoint
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+
+
+def _finite(x) -> bool:
+    return x == x and abs(x) != float("inf")
+
+
+def plain_scan_with_grad(torch):
+    """The chunk scan through the plain versions in both directions
+    (``ref.ssd_scan_ref`` forward, ``ref.ssd_scan_bwd_ref`` backward), the
+    counterpart of ``ops.SSDScan`` for a kernel-against-plain step."""
+    from repro_torch.kernels import ref
+
+    class PlainSSDScan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, states, decay, init):
+            prev, final = ref.ssd_scan_ref(states, decay, init)
+            ctx.save_for_backward(prev, decay)
+            ctx.with_init = init is not None
+            return prev, final
+
+        @staticmethod
+        def backward(ctx, g_prev, g_final):
+            prev, decay = ctx.saved_tensors
+            return ref.ssd_scan_bwd_ref(g_prev.contiguous(), g_final.contiguous(), prev, decay,
+                                        ctx.with_init)
+
+    def scan(states, decay, init=None):
+        return PlainSSDScan.apply(states, decay, init)
+
+    return scan
+
+
+def tapped_scan(torch, record: dict):
+    """``ops.ssd_scan`` that records the first call's forward inputs and
+    output (layer 0's, before any recomputation) and the gradients that
+    reach its outputs in the backward pass: the inputs of that layer's
+    ``ssd_scan_bwd`` launch."""
+    from repro_torch.kernels import ops
+
+    class Tap(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, prev, final):
+            return prev.clone(), final.clone()
+
+        @staticmethod
+        def backward(ctx, g_prev, g_final):
+            record["g_prev"] = g_prev.detach().contiguous().clone()
+            record["g_final"] = g_final.detach().contiguous().clone()
+            return g_prev, g_final
+
+    def scan(states, decay, init=None):
+        prev, final = ops.ssd_scan(states, decay, init)
+        if "prev" not in record:
+            record.update(prev=prev.detach().clone(), decay=decay.detach().clone(),
+                          with_init=init is not None)
+            prev, final = Tap.apply(prev, final)
+        return prev, final
+
+    return scan
+
+
+def train_batch(torch, cfg, step: int, device):
+    """``synthetic_batch`` of ``step`` (seed 0), as ``Trainer`` draws it."""
+    from repro_torch.data.pipeline import batch_to_device, synthetic_batch
+
+    return batch_to_device(synthetic_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, step), device)
+
+
+def train_phase(torch, device) -> dict:
+    """The slice: Mamba2-370M at full width and depth (random weights from
+    seed 0), ``synthetic_batch`` at 4 x 2,048 tokens (8 chunks), remat on,
+    8 steps through the port's ``Trainer`` with one checkpoint save (its
+    last step).  First, one step's gradient with the kernels against the
+    same step with the plain scan and its plain backward, from the same
+    weights: the loss bitwise equal, each leaf's largest gradient
+    difference printed; the backward kernel's layer-0 inputs are captured
+    there.  Then the ``ssd_scan``/``ssd_scan_bwd`` launches a step must
+    equal the count the config predicts (the forward twice a layer under
+    remat, the backward once), the loss must fall and stay finite; step
+    ms, tokens/s, peak memory, the checkpoint's save, and a profiled step
+    with its idle share."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_model, model_param_defs
+    from repro_torch.models.params import param_count
+    from repro_torch.train import Trainer, TrainerConfig, TrainHyper, make_train_step
+    from repro_torch.train.train_step import grads_of
+    from repro_torch.utils.trees import tree_flatten_with_paths
+
+    cfg = get_arch(TRAIN_ARCH)
+    hyper = TrainHyper(total_steps=TRAIN_STEPS, **TRAIN_LR)
+    params = init_model(cfg, torch.Generator().manual_seed(0), device)
+    b0 = train_batch(torch, cfg, 0, device)
+
+    record: dict = {}
+    t0 = time.perf_counter()
+    loss_k, _, grads_k = grads_of(params, cfg, b0, hyper, tapped_scan(torch, record))
+    torch.cuda.synchronize()
+    first_grad_s = time.perf_counter() - t0
+    loss_p, _, grads_p = grads_of(params, cfg, b0, hyper, plain_scan_with_grad(torch))
+    if not torch.equal(loss_k, loss_p):
+        raise AssertionError(f"train: the kernel step's loss {float(loss_k)} differs from the "
+                             f"plain step's {float(loss_p)}")
+    plain_g = dict(tree_flatten_with_paths(grads_p))
+    grad_diff = {k: float((g.float() - plain_g[k].float()).abs().max())
+                 for k, g in tree_flatten_with_paths(grads_k)}
+    if not all(map(_finite, grad_diff.values())):
+        raise AssertionError(f"train: gradient differences are not finite: {grad_diff}")
+    del grads_k, grads_p, plain_g
+    if "g_prev" not in record:
+        raise AssertionError("train: layer 0's scan gradient was not captured")
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                         ckpt_dir=str(CKPT_DIR / "train"), ckpt_every=TRAIN_STEPS, hyper=hyper)
+    trainer = Trainer(cfg, tcfg, device=device, params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = trainer.run()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"ssd_scan": 2 * cfg.num_layers * TRAIN_STEPS, "ssd_scan_bwd": cfg.num_layers * TRAIN_STEPS}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"train: expected launches {want} in {TRAIN_STEPS} steps "
+                             f"(remat: the forward twice a layer), got {launches}")
+    losses = [h["loss"] for h in hist]
+    if len(hist) != TRAIN_STEPS or not all(map(_finite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    step_ms = [1e3 * h["step_time_s"] for h in hist]
+    med = statistics.median(step_ms)
+    step_fn = make_train_step(cfg, hyper)
+    b = train_batch(torch, cfg, TRAIN_STEPS, device)
+    prof = profile_calls(torch, lambda: step_fn(trainer.params, trainer.opt_state, b, TRAIN_STEPS),
+                         1, med, "ssd_scan")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    emit("train", arch=cfg.name, params=param_count(model_param_defs(cfg)), batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, chunks=TRAIN_SEQ // cfg.ssm_chunk, steps=TRAIN_STEPS, remat=hyper.remat,
+         remat_policy=hyper.remat_policy, launches=launches, launches_expected=want,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in want.items()},
+         losses=losses, lr=[h["lr"] for h in hist], grad_norm=[h["grad_norm"] for h in hist],
+         step_ms=step_ms, step_ms_median=med,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (med / 1e3), first_grad_s=first_grad_s,
+         run_s=run_s, save_s_approx=run_s - sum(step_ms) / 1e3, peak_memory_bytes=peak,
+         kernel_vs_plain_step=dict(loss_bitwise_equal=True, loss=float(loss_k),
+                                   grad_max_abs_diff_by_leaf=grad_diff,
+                                   grad_max_abs_diff=max(grad_diff.values())),
+         profile_step=prof)
+    return dict(launches=launches, captured=[record["g_prev"], record["g_final"], record["prev"],
+                                             record["decay"], record["with_init"]])
+
+
+def scan_bwd_work(g_prev, g_final, prev, decay, with_init) -> tuple[int, int, dict]:
+    """Bytes: g_prev, prev, g_final and the decays read once, g_states,
+    g_decay and g_init (where asked) written once; operations: an element's
+    product and its share of the sum, and the carry's multiply and add."""
+    b, c, h, p, n = g_prev.shape
+    lanes = b * h * p * n
+    nbytes = 4 * (3 * g_prev.numel() + decay.numel() * 2 + lanes * (2 if with_init else 1))
+    return nbytes, 4 * g_prev.numel(), dict(B=b, C=c, H=h, P=p, N=n, init=with_init)
+
+
+def scan_bwd_kernel_phase(torch, device, captured, published, cycles_per_ms) -> dict:
+    """``ssd_scan_bwd`` against ``ref.ssd_scan_bwd_ref``: ``g_states`` and
+    ``g_init`` bitwise, ``g_decay`` within ``ref.ssd_scan_bwd_decay_tol``,
+    two calls bitwise equal; timed (L2 flushed) and bound, on (a) the
+    layer-0 inputs captured from the train step (all decays 0 under the JAX
+    init law), (b) layer 0 of the ``ssm`` phase's prefill with Mamba2's
+    published ``a_log``/``dt_bias`` draws (non-zero decays, with its
+    forward's prev), (c) 128 chunks with decays in [0.95, 1)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+
+    def with_grads(states, decay, init):
+        prev, final = ops.ssd_scan(states, decay, init)
+        return [torch.randn(states.shape, generator=gen, device=device),
+                torch.randn(final.shape, generator=gen, device=device), prev, decay,
+                init is not None]
+
+    states, decay, init = published
+    cases = {
+        "train_step_layer0": captured,
+        "published_init_layer0": with_grads(states, decay, init),
+        "long_context_b1_c128": with_grads(*scan_random(torch, gen, 1, 128, 32, 64, 128,
+                                                        0.95, 1.0, False)),
+    }
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    res = {}
+    for label, args in cases.items():
+        got = ops.ssd_scan_bwd(*args)
+        again = ops.ssd_scan_bwd(*args)
+        torch.cuda.synchronize()
+        want = ref.ssd_scan_bwd_ref(*args)
+        if not torch.equal(got[0], want[0]) or (args[4] and not torch.equal(got[2], want[2])):
+            raise AssertionError(f"ssd_scan_bwd {label}: g_states or g_init differs from the "
+                                 "plain version")
+        if not all(torch.equal(x, y) for x, y in zip(got, again) if x is not None):
+            raise AssertionError(f"ssd_scan_bwd {label}: two calls differ")
+        tol = ref.ssd_scan_bwd_decay_tol(want[0], args[2])
+        err = (got[1] - want[1]).abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"ssd_scan_bwd {label}: g_decay off by {float(err.max())}, "
+                                 f"past the tolerance")
+
+        def fresh():
+            flush.zero_()
+            return args
+
+        nbytes, ops_n, info = scan_bwd_work(*args)
+        b_ms, b_by = bound(nbytes, ops_n)
+        res[label] = dict(info, zero_decay_share=float((args[3] == 0).float().mean()),
+                          g_states_g_init_bitwise=True, g_decay_max_abs_err=float(err.max()),
+                          g_decay_err_over_tol=float((err / tol).max()),
+                          max_abs_err=float(err.max()),
+                          ms=time_ms(torch, ops.ssd_scan_bwd, fresh, cycles_per_ms),
+                          plain_ms=time_ms(torch, ref.ssd_scan_bwd_ref, fresh, cycles_per_ms),
+                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops_n,
+                          library_ms=None)
+        del got, again, want
+    return res
+
+
+def train_dense_phase(torch, device) -> dict:
+    """Granite-8B at full width with depth cut to 4 layers, 4 x 2,048
+    tokens (the flash-attention path), remat on: 4 steps of
+    ``make_train_step`` (loss, step ms, peak memory, a profiled step), then
+    the same 4 steps through ``Trainer`` with a checkpoint every 2 steps
+    and a fault injected at step 3, recovered from step 2's checkpoint;
+    the params at the end against the uninterrupted run's."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.model import init_model, model_param_defs
+    from repro_torch.models.params import param_count
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import Trainer, TrainerConfig, TrainHyper, make_train_step
+    from repro_torch.train.trainer import inject_fault_at
+    from repro_torch.utils.trees import tree_flatten_with_paths
+
+    cfg = dataclasses.replace(get_arch(DENSE_ARCH), num_layers=DENSE_LAYERS)
+    hyper = TrainHyper(total_steps=DENSE_STEPS, **TRAIN_LR)
+    params = init_model(cfg, torch.Generator().manual_seed(0), device)
+    step_fn = make_train_step(cfg, hyper)
+    batches = [train_batch(torch, cfg, i, device) for i in range(DENSE_STEPS)]
+    step_fn(params, adamw_init(params), batches[0], 0)        # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p, o, losses, step_ms = params, adamw_init(params), [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step_fn(p, o, b, i)
+        losses.append(float(m["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms)
+    if not all(map(_finite, losses)):
+        raise AssertionError(f"train_dense: losses not finite: {losses}")
+    prof = profile_calls(torch, lambda: step_fn(p, o, batches[0], 0), 1, med, "gemm")
+    del o
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    tcfg = TrainerConfig(steps=DENSE_STEPS, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                         ckpt_dir=str(CKPT_DIR / "dense"), ckpt_every=DENSE_CKPT_EVERY,
+                         hyper=hyper)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tcfg, fault_hook=inject_fault_at({DENSE_FAULT_AT}), device=device,
+                      params=params)
+    hist = trainer.run()
+    fault_run_s = time.perf_counter() - t0
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    seen = [h["step"] for h in hist]
+    if trainer.step != DENSE_STEPS or seen.count(DENSE_CKPT_EVERY) != 2:
+        raise AssertionError(f"train_dense: the fault run saw steps {seen}")
+    ref_p = dict(tree_flatten_with_paths(p))
+    diff = {k: float((v.float() - ref_p[k].float()).abs().max())
+            for k, v in tree_flatten_with_paths(trainer.params)}
+    emit("train_dense", arch=cfg.name, layers=DENSE_LAYERS,
+         reduced=[f"num_layers {get_arch(DENSE_ARCH).num_layers} -> {DENSE_LAYERS}"],
+         params=param_count(model_param_defs(cfg)), batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=DENSE_STEPS, remat=hyper.remat, losses=losses, step_ms=step_ms,
+         step_ms_median=med, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (med / 1e3),
+         peak_memory_bytes=peak, profile_step=prof,
+         fault=dict(at_step=DENSE_FAULT_AT, ckpt_every=DENSE_CKPT_EVERY, steps_seen=seen,
+                    run_s=fault_run_s, losses=[h["loss"] for h in hist],
+                    params_max_abs_diff_vs_uninterrupted=max(diff.values()),
+                    params_equal=all(v == 0.0 for v in diff.values()),
+                    leaves_differing=sorted(k for k, v in diff.items() if v)))
+    return dict(params_equal=all(v == 0.0 for v in diff.values()))
+
+
+def train_replay_phase(torch, device) -> None:
+    """The committed JAX training fixtures (Granite-8B and Mamba2 smoke
+    configs, float32 and bfloat16) through the port's train step with the
+    kernels, held to the CPU tests' ``TRAIN_TOL``; the Mamba2 replays must
+    launch ``ssd_scan_bwd`` once a layer for each gradient they take."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.replay import load_model_replay
+    from repro_torch.train.replay import (
+        TRAIN_TOL,
+        compare_train_case,
+        replay_train_case,
+        train_case_ok,
+    )
+
+    for arch in ("granite_8b", "mamba2_370m"):
+        path = ROOT / "src" / "repro_torch" / "testdata" / f"train_{arch}_smoke.npz"
+        cfg, tree, cases = load_model_replay(path)
+        for dtype, case in sorted(cases.items()):
+            ops.reset_launches()
+            res = compare_train_case(case, replay_train_case(cfg, tree, dtype, case, device))
+            torch.cuda.synchronize()
+            res["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+            grads = 1 + len(case["loss"])     # step 0's gradient, then every step
+            want = ({} if cfg.family != "ssm" else
+                    {"ssd_scan": 2 * cfg.num_layers * grads, "ssd_scan_bwd": cfg.num_layers * grads})
+            if not train_case_ok(res, TRAIN_TOL[dtype]) or res["launches"] != want:
+                raise AssertionError(f"train replay {arch} {dtype}: {res}, launches expected {want}")
+            emit("train_replay", arch=arch, case=dtype, tol=TRAIN_TOL[dtype], **res)
+
+
 def main() -> None:
     import torch
 
@@ -2437,7 +2792,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import workload as wl
     from repro_torch.core.simulator import SimConfig
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
 
     device = torch.device("cuda")
     # float32 products in full float32 (the plain versions are references)
@@ -2541,6 +2896,18 @@ def main() -> None:
     sres = scan_kernel_phase(torch, device, ssm.pop("scan_args"), cycles_per_ms)
     emit("kernels", kernel="ssd_scan", spin_cycles_per_ms=cycles_per_ms, **sres)
     ssm_replay_phase(torch, device)
+    elapsed("ssm")
+
+    torch.cuda.empty_cache()
+    train = train_phase(torch, device)
+    bres = scan_bwd_kernel_phase(torch, device, train.pop("captured"),
+                                 ssm.pop("published_args"), cycles_per_ms)
+    emit("kernels", kernel="ssd_scan_bwd", spin_cycles_per_ms=cycles_per_ms, **bres)
+    torch.cuda.empty_cache()
+    train_dense_phase(torch, device)
+    torch.cuda.empty_cache()
+    train_replay_phase(torch, device)
+    elapsed("train")
 
     # Headline case of each FLIC kernel: the first main-path case of the
     # kernels phase.  Launches: the main path's kernel runs of the five
@@ -2570,18 +2937,23 @@ def main() -> None:
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
     })
     # flic_merge: its entry's run on the dense cell's catch-up; ssd_scan: the
-    # Mamba2 run's launches (one prefill).  Error: the largest over all cases.
-    for name, launches, cases in (("flic_merge", merge["launches"], mres),
-                                  ("ssd_scan", ssm["launches"], sres)):
+    # Mamba2 prefill's launches and the train run's (8 steps, remat: the
+    # forward twice a layer); ssd_scan_bwd: the train run's.  Error: the
+    # largest over all cases (ssd_scan_bwd: g_decay's; g_states and g_init
+    # are bitwise).
+    for name, launches, cases in (
+            ("flic_merge", merge["launches"], mres),
+            ("ssd_scan", ssm["launches"] + train["launches"]["ssd_scan"], sres),
+            ("ssd_scan_bwd", train["launches"]["ssd_scan_bwd"], bres)):
         head = next(iter(cases.values()))
         lines.append({
-            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{ops.SOURCE.get(name, name)}.cu",
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": max(v["max_abs_err"] for v in cases.values()),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,
         })
-    elapsed("ssm")
     print(json.dumps({"kernels": lines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

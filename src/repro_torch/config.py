@@ -5,12 +5,13 @@ defaults, so a test can convert the JAX package's config with
 ``ModelConfig(**dataclasses.asdict(jax_cfg))``.  ``get_arch(name)`` and
 ``get_smoke_arch(name)`` resolve ``repro_torch.configs.<name>``; the port
 carries only the configurations it can run (``configs/``).
+``parse_overrides`` reads the launchers' trailing ``key=value`` arguments.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Any, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,3 +106,21 @@ def get_arch(name: str) -> ModelConfig:
 def get_smoke_arch(name: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""
     return _module(name).SMOKE_CONFIG
+
+
+def parse_overrides(args: list[str]) -> dict[str, Any]:
+    """Parse trailing ``key=value`` CLI overrides (ints/floats/bools/str)."""
+    out: dict[str, Any] = {}
+    for a in args:
+        if "=" not in a:
+            raise ValueError(f"override must be key=value, got {a!r}")
+        k, v = a.split("=", 1)
+        for cast in (int, float):
+            try:
+                out[k] = cast(v)
+                break
+            except ValueError:
+                continue
+        else:
+            out[k] = {"true": True, "false": False}.get(v.lower(), v)
+    return out

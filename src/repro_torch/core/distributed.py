@@ -471,10 +471,15 @@ def fog_shard_tick(cfg: SimConfig, group: FogGroup, state: FogShardState,
 
 def _run_distributed_rank(cfg: SimConfig, group: FogGroup, ticks: int, seed: int,
                           metrics_every: int, draws):
-    """One rank's tick loop: replayed ``draws``, or native draws from a
-    generator seeded with ``seed`` (the same on every rank)."""
+    """One rank's tick loop: replayed ``draws`` (``replay.draws_to_arrays``'s
+    arrays), or native draws from a generator seeded with ``seed`` (the same
+    on every rank)."""
+    from repro_torch.core.replay import draws_from_arrays
+
     state = init_fog_shard(cfg, cfg.n_nodes // group.world, group.device)
     ticks_host = iter(range(ticks))
+    if draws is not None:
+        draws = draws_from_arrays(cfg, draws, group.device)
     if draws is None:
         gen = torch.Generator(device=group.device)
         gen.manual_seed(seed)
@@ -503,9 +508,12 @@ def _run_distributed_rank(cfg: SimConfig, group: FogGroup, ticks: int, seed: int
 @dataclasses.dataclass(frozen=True)
 class EngineRun:
     """One run of a multi-rank engine: ``engine`` is ``"distributed"`` or
-    ``"sharded"``; ``draws`` (distributed only) replays one ``TickDraws``
-    per tick instead of drawing natively from ``seed``; ``profile`` runs it
-    under ``torch.profiler`` on the card to read each rank's device time."""
+    ``"sharded"``; ``draws`` replays injected draws instead of drawing
+    natively from ``seed``: for ``"distributed"`` one ``TickDraws`` per
+    tick, for ``"sharded"`` one dict per rank of every tick's ``ShardDraws``
+    fields stacked as numpy arrays (``sharded.shard_draws_from_arrays``);
+    ``profile`` runs it under ``torch.profiler`` on the card to read each
+    rank's device time."""
 
     engine: str
     cfg: SimConfig
@@ -555,8 +563,11 @@ def _validate(run: EngineRun, world: int) -> None:
         from repro_torch.core.sharded import validate_sharded
 
         validate_sharded(cfg)
-        if run.draws is not None:
-            raise ValueError("the sharded engine draws per-shard streams; it replays no draws")
+        if run.draws is not None and len(run.draws) != world:
+            raise ValueError(f"{len(run.draws)} per-rank draw series for {world} ranks")
+        for arrays in run.draws or ():
+            if len(arrays["t"]) != run.ticks:
+                raise ValueError(f"{len(arrays['t'])} draws for {run.ticks} ticks")
     elif run.draws is not None and len(run.draws) != run.ticks:
         raise ValueError(f"{len(run.draws)} draws for {run.ticks} ticks")
 
@@ -592,12 +603,11 @@ def _rank_main(rank: int, world: int, backend: str, device: Optional[str], port:
                                 world_size=world, rank=rank,
                                 timeout=timedelta(seconds=timeout_s))
         group = FogGroup(rank, world, dist.group.WORLD, dev)
-        from repro_torch.core.replay import draws_from_arrays
         from repro_torch.kernels import ops
 
         for i, run in enumerate(runs):
             cfg = run["cfg"]
-            draws = None if run["draws"] is None else draws_from_arrays(cfg, run["draws"], dev)
+            draws = run["draws"]
             fn, _, _ = _engine(run["engine"])
             ops.reset_launches()
             profiled = run["profile"] and dev.type == "cuda"
@@ -684,7 +694,8 @@ def run_group(runs: list[EngineRun], *, world: int, backend: str, device=None,
 
     payload = [dict(engine=r.engine, cfg=r.cfg, ticks=r.ticks, seed=r.seed,
                     metrics_every=r.metrics_every, profile=r.profile,
-                    draws=None if r.draws is None else draws_to_arrays(r.draws))
+                    draws=r.draws if r.draws is None or r.engine == "sharded"
+                    else draws_to_arrays(r.draws))
                for r in runs]
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()

@@ -129,6 +129,19 @@ def draw_shard_tick(cfg: SimConfig, n_local: int, t: int, gen: torch.Generator) 
     return ShardDraws(t=t, w_kids=w_kids, r_kids=r_kids, **u)
 
 
+SHARD_DRAW_FIELDS = ("w_kids", "r_kids", "u_ge_up", "u_ge_dn", "u_gossip", "u_resp", "u_coll")
+
+
+def shard_draws_from_arrays(arrays: dict, device) -> list[ShardDraws]:
+    """One rank's injected draws: ``t`` (T,) and the ``ShardDraws`` fields
+    that its config consumes, each stacked over ticks as a numpy array, as
+    one ``ShardDraws`` per tick on ``device``."""
+    stacked = {k: torch.from_numpy(np.array(arrays[k])).to(device)
+               for k in SHARD_DRAW_FIELDS if k in arrays}
+    return [ShardDraws(t=int(t), **{k: v[i] for k, v in stacked.items()})
+            for i, t in enumerate(np.asarray(arrays["t"]).tolist())]
+
+
 def sharded_wire_bytes(cfg: SimConfig, p: int) -> float:
     """Modelled wire bytes a tick over ``p`` ranks: (p - 1) write-forward
     buckets of n_local rows x 5 B (key id + live flag), (p - 1) routed-query
@@ -510,15 +523,27 @@ def _merge_sharded_states(ranks: list[dict]) -> dict:
 
 def _run_sharded_rank(cfg: SimConfig, group: FogGroup, ticks: int, seed: int,
                       metrics_every: int, draws):
-    """One rank's tick loop on its own stream (``shard_seed(seed, rank)``)."""
+    """One rank's tick loop on its own stream (``shard_seed(seed, rank)``),
+    or on its series of injected ``draws`` (one arrays dict per rank)."""
     n_local = cfg.n_nodes // group.world
-    gen = torch.Generator(device=group.device)
-    gen.manual_seed(shard_seed(seed, group.rank))
     ticks_host = iter(range(ticks))
+    if draws is None:
+        gen = torch.Generator(device=group.device)
+        gen.manual_seed(shard_seed(seed, group.rank))
+
+        def source(t: int) -> ShardDraws:
+            return draw_shard_tick(cfg, n_local, t, gen)
+    else:
+        replay = iter(shard_draws_from_arrays(draws[group.rank], group.device))
+
+        def source(t: int) -> ShardDraws:
+            d = next(replay)
+            if d.t != t:
+                raise ValueError(f"draws hold tick {d.t} where tick {t} is due")
+            return d
 
     def step(s):
-        return sharded_fog_tick(cfg, group, s, draw_shard_tick(cfg, n_local, next(ticks_host),
-                                                               gen))
+        return sharded_fog_tick(cfg, group, s, source(next(ticks_host)))
 
     return windowed_loop(step, init_sharded_fog(cfg, n_local, group.device), ticks,
                          metrics_every)
@@ -530,9 +555,11 @@ def run_sharded_sim(cfg: SimConfig, ticks: int, *, world: int, backend: str, see
     """Run the bandwidth-lean fog for ``ticks`` over ``world`` ranks.
 
     Returns (final state: caches and channel in node order, the per-shard
-    rest stacked (p, ...); rank 0's ``TickMetrics`` series).  The series is
-    held to the tolerance tier, not bitwise; ``draws`` must be None (each
-    rank draws its own stream).
+    rest stacked (p, ...); rank 0's ``TickMetrics`` series).  With native
+    draws (``draws=None``: each rank draws its own stream) the series is
+    held to the tolerance tier, not bitwise; ``draws`` (one arrays dict per
+    rank, ``shard_draws_from_arrays``) replays injected per-shard draws,
+    such as JAX's sharded engine's, tick for tick.
     """
     from repro_torch.core.distributed import EngineRun, run_group
 

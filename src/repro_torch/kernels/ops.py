@@ -19,6 +19,8 @@ and alignment; ``paged_attention`` copies K/V rows in the unit that
 ``paged_row_plan`` picks.
 
 ``LAUNCHES[name]`` counts the calls that launched kernel ``name``.
+``ssd_scan_bwd`` (the gradient of ``ssd_scan``, through ``SSDScan``) is
+the second entry of ``csrc/ssd_scan.cu``, counted under its own name.
 """
 from __future__ import annotations
 
@@ -32,8 +34,10 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES: dict[str, int] = {
     "flic_insert": 0, "flic_update": 0, "flic_lookup": 0, "flic_merge": 0,
-    "paged_attention": 0, "ssd_scan": 0,
+    "paged_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
 }
+# Launch names whose entry lives in another kernel's source.
+SOURCE = {"ssd_scan_bwd": "ssd_scan"}
 
 
 def reset_launches() -> None:
@@ -65,7 +69,7 @@ def _check(device, **tensors) -> None:
 @functools.cache
 def _launcher(name: str, n_ptr: int, n_int: int):
     """The C launcher of kernel ``name``, resolved and typed once."""
-    fn = getattr(build.library(name), f"{name}_launch")
+    fn = getattr(build.library(SOURCE.get(name, name)), f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -454,8 +458,18 @@ def ssd_scan(states, chunk_decay, init=None):
 
     ``states`` (B, C, H, P, N), ``chunk_decay`` (B, C, H) and ``init``
     (B, H, P, N) or ``None`` (zeros); on CUDA all float32 and contiguous.
-    Returns (prev (B,C,H,P,N), final (B,H,P,N)) in float32.
+    Returns (prev (B,C,H,P,N), final (B,H,P,N)) in float32.  Where a
+    gradient is required (grad mode on and an input that requires one) the
+    call goes through ``SSDScan``, whose backward is ``ssd_scan_bwd``; the
+    outputs are the same.
     """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (states, chunk_decay, init)):
+        return SSDScan.apply(states, chunk_decay, init)
+    return _ssd_scan_fwd(states, chunk_decay, init)
+
+
+def _ssd_scan_fwd(states, chunk_decay, init):
     if not _on_cuda(states):
         return ref.ssd_scan_ref(states, chunk_decay, init)
     b, c, h, p, n = states.shape
@@ -468,3 +482,59 @@ def ssd_scan(states, chunk_decay, init=None):
     _launch("ssd_scan", states.device, (states, chunk_decay, init, prev, final),
             (b, c, h, p * n))
     return prev, final
+
+
+SSD_BWD_THREADS = 256   # lanes of one block of ssd_scan_bwd (kBwdThreads in ssd_scan.cu)
+
+
+def ssd_scan_bwd(g_prev, g_final, prev, chunk_decay, with_init: bool = True):
+    """The gradient of ``ssd_scan``; see ``ref.ssd_scan_bwd_ref``.
+
+    ``g_prev``/``prev`` (B, C, H, P, N), ``g_final`` (B, H, P, N),
+    ``chunk_decay`` (B, C, H); on CUDA all float32 and contiguous, B * H
+    <= 65,535.  Returns (g_states, g_decay (B,C,H), g_init or ``None``
+    without ``with_init``) in float32.  On CUDA ``g_states`` and ``g_init``
+    equal the plain version bitwise; ``g_decay``'s (P, N) sums are taken in
+    the kernel's fixed order (``ref.ssd_scan_bwd_decay_tol``), the same
+    bits on every call.
+    """
+    if not _on_cuda(g_prev):
+        return ref.ssd_scan_bwd_ref(g_prev, g_final, prev, chunk_decay, with_init)
+    b, c, h, p, n = g_prev.shape
+    _check(g_prev.device, g_prev=(g_prev, F32, (b, c, h, p, n)),
+           g_final=(g_final, F32, (b, h, p, n)), prev=(prev, F32, (b, c, h, p, n)),
+           chunk_decay=(chunk_decay, F32, (b, c, h)))
+    if b * h > 65_535:
+        raise ValueError(f"batch x heads = {b * h} exceeds the kernel's grid limit of 65,535")
+    cols = -(-(p * n) // SSD_BWD_THREADS)
+    g_states = torch.empty_like(g_prev)
+    g_decay = torch.empty((b, c, h), dtype=F32, device=g_prev.device)
+    g_init = torch.empty_like(g_final) if with_init else None
+    partial = torch.empty((b * c * h * cols,), dtype=F32, device=g_prev.device)
+    _launch("ssd_scan_bwd", g_prev.device,
+            (g_prev, g_final, prev, chunk_decay, g_states, g_decay, g_init, partial),
+            (b, c, h, p * n, cols))
+    return g_states, g_decay, g_init
+
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with its gradient: the forward kernel (or the plain
+    version on CPU tensors), saving ``prev`` and ``chunk_decay``; the
+    backward ``ssd_scan_bwd``.  No gradient for ``init`` when it is
+    ``None``."""
+
+    @staticmethod
+    def forward(ctx, states, chunk_decay, init):
+        prev, final = _ssd_scan_fwd(states, chunk_decay, init)
+        ctx.save_for_backward(prev, chunk_decay)
+        ctx.with_init = init is not None
+        return prev, final
+
+    @staticmethod
+    def backward(ctx, g_prev, g_final):
+        prev, chunk_decay = ctx.saved_tensors
+        g_states, g_decay, g_init = ssd_scan_bwd(
+            g_prev.contiguous(), g_final.contiguous(), prev, chunk_decay.contiguous(),
+            ctx.with_init)
+        return g_states, g_decay, g_init

@@ -229,23 +229,73 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths):
 # ssd_scan: Mamba2 inter-chunk state recurrence (exclusive scan)
 # ---------------------------------------------------------------------------
 
+def _scan_dtype(t):
+    """float32, or float64 for float64 inputs."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def ssd_scan_ref(states, chunk_decay, init=None):
     """The SSD chunk recurrence ``S_c = decay_c * S_{c-1} + states_c``.
 
     ``states`` (B, C, H, P, N) chunk-local states, ``chunk_decay`` (B, C, H)
-    and ``init`` (B, H, P, N) (``None``: zeros), all read as float32.
+    and ``init`` (B, H, P, N) (``None``: zeros), all read as float32
+    (float64 stays float64, for ``gradcheck``).
     Returns (prev (B,C,H,P,N), final (B,H,P,N)) in float32: ``prev[:, c]``
     is the state entering chunk c (an exclusive scan), ``final`` the state
     after the last chunk.  Each step rounds the product, then the sum (a
     multiply, then an add; no fused multiply-add), as the CUDA kernel does.
     """
     b, c, h, p, n = states.shape
-    states = states.float()
-    decay = chunk_decay.float()
-    carry = (torch.zeros((b, h, p, n), dtype=torch.float32, device=states.device)
-             if init is None else init.float())
+    dt = _scan_dtype(states)
+    states = states.to(dt)
+    decay = chunk_decay.to(dt)
+    carry = (torch.zeros((b, h, p, n), dtype=dt, device=states.device)
+             if init is None else init.to(dt))
     prev = torch.empty_like(states)
     for i in range(c):
         prev[:, i] = carry
         carry = decay[:, i, :, None, None] * carry + states[:, i]
     return prev, carry
+
+
+def ssd_scan_bwd_ref(g_prev, g_final, prev, chunk_decay, with_init: bool = True):
+    """The gradient of ``ssd_scan_ref``: a reverse scan of the forward's form
+    plus a reduction over (P, N).
+
+    ``g_prev`` (B, C, H, P, N) and ``g_final`` (B, H, P, N), the gradients
+    of ``prev`` and ``final``; ``prev`` the forward's entering states and
+    ``chunk_decay`` (B, C, H), all read as float32.  With ``A_c`` the
+    adjoint of the state after chunk c, ``A_{C-1} = g_final`` and
+    ``A_{c-1} = g_prev[c] + decay[c] * A_c``.  Returns (g_states =
+    ``A``, (B,C,H,P,N); g_decay[b, c, h] = sum over (p, n) of
+    ``A_c * prev[c]``, (B,C,H); g_init = ``g_prev[0] + decay[0] * A_0``,
+    (B,H,P,N), or ``None`` without ``with_init``), all float32.  Each step
+    rounds the product, then the sum, as the CUDA kernel does; the (P, N)
+    sums of ``g_decay`` are PyTorch's, whose order the kernel does not
+    follow.  float64 inputs stay float64.
+    """
+    b, c, h, p, n = g_prev.shape
+    dt = _scan_dtype(g_prev)
+    g_prev = g_prev.to(dt)
+    prev = prev.to(dt)
+    decay = chunk_decay.to(dt)
+    carry = g_final.to(dt).clone()
+    g_states = torch.empty_like(g_prev)
+    g_decay = torch.empty((b, c, h), dtype=dt, device=g_prev.device)
+    for i in reversed(range(c)):
+        g_states[:, i] = carry
+        g_decay[:, i] = (carry * prev[:, i]).sum(dim=(-2, -1))
+        carry = g_prev[:, i] + decay[:, i, :, None, None] * carry
+    return g_states, g_decay, carry if with_init else None
+
+
+def ssd_scan_bwd_decay_tol(g_states, prev, ulps: int = 64):
+    """The stated tolerance of a ``g_decay`` whose (P, N) sums were taken in
+    another order: ``ulps`` float32 units of roundoff (2**-24) times the sum
+    of the products' magnitudes, per (b, c, h).  Any order of summing n
+    terms errs by at most (its longest chain of additions) x 2**-24 x that
+    magnitude sum; the kernel's chain is 5 shuffle levels + 8 warp sums +
+    ceil(P*N / 256) block partials (45 at P*N = 8,192), and a random walk
+    over a chain keeps far below its bound."""
+    mag = (g_states.float().abs() * prev.float().abs()).sum(dim=(-2, -1))
+    return ulps * 2.0**-24 * mag + torch.finfo(torch.float32).tiny

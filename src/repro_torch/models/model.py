@@ -7,6 +7,7 @@ and Mamba2 SSM):
   * ``init_model(cfg, generator, device)`` — random weights from a seed, on
     the card unless ``device`` says otherwise;
   * ``forward(params, cfg, batch)``  — hidden states for train/prefill;
+  * ``loss_fn``                       — chunked cross-entropy (``chunked_ce``);
   * ``prefill`` / ``decode_step``    — serving with per-layer caches
     (contiguous K/V for attention, conv window and SSD state for Mamba2).
 
@@ -14,14 +15,16 @@ and Mamba2 SSM):
 (the CUDA kernel on the card), or ``kernels.ref.ssd_scan_ref``, its plain
 version.
 
-Batches: ``{"tokens": (B,S) int32}``.  The VLM patch prefix, the encoder
-and the training loss are later work (ROADMAP.md, Queue 1).
+Batches: ``{"tokens": (B,S) int32}``, and for the loss ``"labels"`` (B,S)
+and an optional ``"loss_mask"``.  The VLM patch prefix and the encoder are
+later work (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.simulator import resolve_device
@@ -53,9 +56,15 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None) -> dic
     return init_params(model_param_defs(cfg), generator, resolve_device(device))
 
 
+LOSS_CHUNK = 1024
+
+
 def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train",
-            ssd_scan: ScanFn = ops.ssd_scan):
-    """Returns (hidden, aux_loss, caches, text_offset). Caches only in prefill."""
+            ssd_scan: ScanFn = ops.ssd_scan, remat: bool = False, remat_policy: str = "dots"):
+    """Returns (hidden, aux_loss, caches, text_offset). Caches only in
+    prefill; ``remat`` (train mode) recomputes each layer in the backward
+    pass (``stack.apply_group``).  ``aux`` is 0: the ported families have
+    no auxiliary loss."""
     if cfg.family == "vlm" and "patches" in batch:
         raise NotImplementedError("the VLM patch prefix is not ported yet (ROADMAP.md, Queue 1)")
     x = embed_tokens(params["embed"], batch["tokens"])
@@ -66,7 +75,7 @@ def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train",
     for i, g in enumerate(dec_groups):
         x, c = apply_group(params["dec"][f"g{i}"], cfg, g, x, pos,
                            "prefill" if mode == "prefill" else "train",
-                           ssd_scan=ssd_scan)
+                           ssd_scan=ssd_scan, remat=remat, remat_policy=remat_policy)
         if mode == "prefill":
             caches.append(c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -77,6 +86,48 @@ def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train",
 def _lm_head_weight(params, cfg: ModelConfig):
     emb = params["embed"]
     return emb["tok"].T if cfg.tie_embeddings else emb["head"]
+
+
+def _chunk_ce(h, labels, mask, w):
+    """Sum of one chunk's masked CE and of its mask; logits float32 of the
+    product in the params' dtype."""
+    logits = f32(h @ w)                                         # (B,c,V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def chunked_ce(params, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over (B,S) labels; logits computed per sequence chunk of the
+    largest divisor of S that is at most ``LOSS_CHUNK``, each recomputed in
+    the backward pass (checkpoint), so no (B, c, V) logits live across
+    chunks.  The chunk sums are added in order, as JAX's scan does."""
+    w = _lm_head_weight(params, cfg)
+    b, s, d = hidden.shape
+    chunk = min(LOSS_CHUNK, s)
+    while s % chunk:
+        chunk -= 1
+    mask = (torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+            if mask is None else mask.to(torch.float32))
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(s // chunk):
+        part = slice(i * chunk, (i + 1) * chunk)
+        t, c = ckpt.checkpoint(_chunk_ce, hidden[:, part], labels[:, part], mask[:, part], w,
+                               use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = False,
+            remat_policy: str = "dots", ssd_scan: ScanFn = ops.ssd_scan):
+    """(loss, {"ce", "aux"}): the chunked CE plus 0.01 x the auxiliary loss."""
+    hidden, aux, _, offset = forward(params, cfg, batch, "train", ssd_scan, remat,
+                                     remat_policy)
+    if offset:
+        hidden = hidden[:, offset:]
+    ce = chunked_ce(params, cfg, hidden, batch["labels"], batch.get("loss_mask"))
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, ssd_scan: ScanFn = ops.ssd_scan):

@@ -6,14 +6,17 @@ run, attention (``mixer="attn"``) with a dense MLP (``ffn="mlp"``) and a
 Mamba2 mixer alone (``mixer="ssm"``, ``ffn="none"``), and raises
 ``NotImplementedError`` for any other block.  JAX's ``lax.scan`` over
 layers is a Python loop over the leading ``layers`` axis of each
-parameter.
+parameter; its ``jax.checkpoint`` of the scan body (``remat``) is
+``torch.utils.checkpoint`` of each step.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
@@ -184,16 +187,60 @@ def _index(tree, i: int):
     return tree[i]
 
 
+REMAT_POLICIES = ("dots", "nothing")
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the products without
+    batch dimensions (``mm``, and ``bmm`` over a batch of one, which is how
+    an unbatched ``einsum`` runs), recompute the rest."""
+    if func is torch.ops.aten.mm.default or (
+            func is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _train_step(step_params: dict, x, positions, cfg: ModelConfig, g: Group,
+                ssd_scan: ssm_mod.ScanFn):
+    """One step of a group in train mode (the body that ``remat`` recomputes)."""
+    for i, bd in enumerate(g.blocks):
+        x, _ = _apply_block(step_params[f"blk{i}"], cfg, bd, x, positions, "train", None,
+                            None, ssd_scan)
+    return x
+
+
+def _remat_step(step_params: dict, x, positions, cfg: ModelConfig, g: Group,
+                ssd_scan: ssm_mod.ScanFn, policy: str):
+    """``_train_step`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward pass, but for the products that ``"dots"``
+    saves (``"nothing"`` saves none).  The numbers do not depend on the
+    policy."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}: use one of {REMAT_POLICIES}")
+    context = (functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
+               if policy == "dots" else ckpt.noop_context_fn)
+    return ckpt.checkpoint(_train_step, step_params, x, positions, cfg, g, ssd_scan,
+                           use_reentrant=False, context_fn=context)
+
+
 def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
-                cache=None, kv_len=None, ssd_scan: ssm_mod.ScanFn = ops.ssd_scan):
+                cache=None, kv_len=None, ssd_scan: ssm_mod.ScanFn = ops.ssd_scan,
+                remat: bool = False, remat_policy: str = "dots"):
     """Run a group's steps in order.  Returns (x, caches stacked over steps).
 
     Prefill stacks each step's fresh caches.  Decode of attention blocks
     writes K/V into ``cache`` in place (each step gets a view of its layer)
     and returns it; decode of Mamba2 blocks stacks each step's new states
     (new tensors: a float32 model's bfloat16 conv window turns float32, as
-    in JAX).
+    in JAX).  Train mode returns no caches; with ``remat`` each step is
+    recomputed in the backward pass (``_remat_step``).
     """
+    if mode == "train":
+        for s in range(g.steps):
+            step_params = _index(gp, s)
+            x = (_remat_step(step_params, x, positions, cfg, g, ssd_scan, remat_policy)
+                 if remat else _train_step(step_params, x, positions, cfg, g, ssd_scan))
+        return x, None
     per_step = []
     for s in range(g.steps):
         step_params = _index(gp, s)
@@ -205,8 +252,6 @@ def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
                 step_params[f"blk{i}"], cfg, bd, x, positions, mode, c_in, kv_len,
                 ssd_scan)
         per_step.append(new_caches)
-    if mode == "train":
-        return x, None
     if mode == "decode" and all(bd.mixer == "attn" for bd in g.blocks):
         return x, cache
     return x, {blk: {name: torch.stack([c[blk][name] for c in per_step])

@@ -9,13 +9,18 @@ Not a test module: it imports both packages, which only tests may do.
   ``_delivery_mask_dense``, ``_response_mask_compact`` and
   ``backing_store.commit_writes`` use — and returns every tick's draws in
   the replay format of ``repro_torch.core.replay``.  No JAX file changes.
+* ``jax_shard_draw_arrays`` does the same for the sharded engine's
+  per-shard key chains, one draw series per rank.
 * ``jax_series``/``jax_state_arrays`` flatten JAX results to numpy.
 * ``replay_fixture_arrays``/``write_replay_fixture`` build the committed
   replay files that ``chip_smoke.py`` runs on the card, every conformance
   case at seeds 0 and 1 (``fixture_path``);
   ``serve_fixture``/``write_serve_fixture`` the serving ones (Granite-8B's
   and Granite-3-8B's smoke configs);
-  ``ssm_fixture``/``write_ssm_fixture`` the Mamba2 one (``jax_ssm_run``).
+  ``ssm_fixture``/``write_ssm_fixture`` the Mamba2 one (``jax_ssm_run``);
+  ``train_fixture``/``write_train_fixture`` the training ones
+  (``jax_train_run``: three steps of JAX's ``make_train_step``).
+* ``jax_flat_params``/``nested`` move parameter trees between the layouts.
 """
 from __future__ import annotations
 
@@ -98,6 +103,50 @@ def jax_draw_arrays(jcfg, ticks: int, seed: int = 0, start=None) -> dict[str, np
     scan = jax.jit(lambda c: jax.lax.scan(_tick_draws(jcfg), c, None, length=ticks))
     _, out = scan((start.plan, start.rng, start.tick))
     return {k: np.asarray(v) for k, v in out.items()}
+
+
+def jax_shard_draw_arrays(jcfg, ticks: int, seed: int, world: int) -> list[dict]:
+    """Per rank, every tick's draws of JAX's sharded engine, stepped
+    in-process on its per-shard key chain (``repro.core.sharded``):
+    ``fold_in(PRNGKey(seed), rank)``, then ``split(rng, 5)`` each tick into
+    (next, write, read, channel, collision) keys; the write key ids from
+    ``fold_in(k_write, WRITE_SALT)`` and the read ids from ``k_read``
+    (``sample_key_ids``); ``gilbert_elliott_advance``'s uniforms from
+    ``split(k_chan, 3)``; the gossip and response loss uniforms from
+    ``fold_in(k_mask, 1)`` and ``fold_in(k_mask, 2)``; ``commit_writes``'
+    collision uniform from ``k_coll``.  Returns one dict per rank of
+    ``repro_torch.core.sharded.ShardDraws`` fields stacked over ticks."""
+    from repro_torch.core.sharded import gossip_fanout
+
+    n_local = jcfg.n_nodes // world
+    spec = jcfg.workload
+    k_g = gossip_fanout(jcfg, n_local)
+
+    def step(rng, _):
+        rng_next, k_write, k_read, k_chan, k_coll = jax.random.split(rng, 5)
+        out = {"w_kids": jwl.sample_key_ids(
+            spec, jax.random.fold_in(k_write, jwl.WRITE_SALT), (n_local,))}
+        k_mask = k_chan
+        if jcfg.loss_model == "gilbert_elliott":
+            k_up, k_dn, k_mask = jax.random.split(k_chan, 3)
+            out["u_ge_up"] = jax.random.uniform(k_up, (n_local,))
+            out["u_ge_dn"] = jax.random.uniform(k_dn, (n_local,))
+        if jcfg.loss_model != "none" and k_g:
+            out["u_gossip"] = jax.random.uniform(jax.random.fold_in(k_mask, 1), (n_local, k_g))
+        out["r_kids"] = jwl.sample_key_ids(spec, k_read, (n_local,))
+        if jcfg.loss_model != "none":
+            out["u_resp"] = jax.random.uniform(jax.random.fold_in(k_mask, 2),
+                                               (n_local, n_local))
+        if jcfg.store.collision_prob > 0.0:
+            out["u_coll"] = jax.random.uniform(k_coll, ())
+        return rng_next, out
+
+    scan = jax.jit(lambda rng: jax.lax.scan(step, rng, None, length=ticks)[1])
+    ranks = []
+    for rank in range(world):
+        out = scan(jax.random.fold_in(jax.random.PRNGKey(seed), rank))
+        ranks.append({"t": np.arange(ticks), **{k: np.asarray(v) for k, v in out.items()}})
+    return ranks
 
 
 def jax_series(series) -> dict[str, np.ndarray]:
@@ -432,6 +481,95 @@ def write_ssm_fixture(path: str = SSM_FIXTURE) -> str:
     return path
 
 
+def jax_flat_params(jparams) -> dict[str, np.ndarray]:
+    """A JAX parameter (or gradient) tree as ``{"/"-joined path: numpy}``."""
+    return {"/".join(str(getattr(k, "key", getattr(k, "name", k))) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(jparams)[0]}
+
+
+def nested(flat: dict) -> dict:
+    """``{"a/b": x}`` -> ``{"a": {"b": x}}``."""
+    tree: dict = {}
+    for k, v in flat.items():
+        *parents, leaf = k.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+TRAIN_FIXTURES = {arch: os.path.join(FIXTURE_DIR, f"train_{arch}_smoke.npz")
+                  for arch in ("granite_8b", "mamba2_370m")}
+
+
+def jax_train_run(jcfg, jparams) -> dict:
+    """JAX's run of one training-fixture case (``repro_torch.train.replay``'s
+    format): step 0's gradient of the tracked leaves, then
+    ``FIXTURE_RUN["steps"]`` steps of ``make_train_step`` on
+    ``synthetic_batch`` of each step, from ``adamw_init``."""
+    from repro.data.pipeline import synthetic_batch
+    from repro.models.model import loss_fn
+    from repro.optim import adamw_init
+    from repro.train.train_step import TrainHyper, make_train_step
+    from repro_torch.train.replay import FIXTURE_RUN, TRACKED
+
+    run = FIXTURE_RUN
+    hyper = TrainHyper(**run["hyper"])
+    batches = [synthetic_batch(jcfg, run["seq"], run["batch"], i) for i in range(run["steps"])]
+    grads = jax.grad(lambda p: loss_fn(p, jcfg, {k: jnp.asarray(v) for k, v in batches[0].items()},
+                                       remat=hyper.remat, remat_policy=hyper.remat_policy)[0])(jparams)
+    step_fn = jax.jit(make_train_step(jcfg, hyper))
+    params, opt = jparams, adamw_init(jparams)
+    metrics = []
+    for i, b in enumerate(batches):
+        params, opt, m = step_fn(params, opt, {k: jnp.asarray(v) for k, v in b.items()}, i)
+        metrics.append(m)
+    init, post, g0 = (jax_flat_params(t) for t in (jparams, params, grads))
+    case = {"hyper": np.asarray(json.dumps(run, sort_keys=True)),
+            "tokens": np.stack([b["tokens"] for b in batches]),
+            "labels": np.stack([b["labels"] for b in batches])}
+    for k in ("loss", "grad_norm", "lr"):
+        case[k] = np.asarray([np.float32(m[k]) for m in metrics], np.float32)
+    for k in TRACKED[jcfg.family]:
+        case[f"grad/{k}"] = g0[k].astype(np.float32)
+        case[f"post/{k}"] = post[k].astype(np.float32)
+    for k in post:
+        case[f"update_norm/{k}"] = np.float64(np.linalg.norm(
+            post[k].astype(np.float64) - init[k].astype(np.float64)))
+    return case
+
+
+@functools.cache
+def train_fixture(arch: str) -> tuple:
+    """(JAX config, flat numpy params, cases) of the committed training
+    fixture of ``arch``'s smoke config: weights from ``PRNGKey(0)`` in
+    bfloat16; case ``bfloat16`` trains them as they are, case ``float32``
+    the float32 model on the same weights widened (exactly).  Cached: the
+    returned arrays are shared and must not be changed."""
+    from repro.config import get_smoke_arch
+    from repro.models import init_model
+
+    jcfg = get_smoke_arch(arch)
+    jparams = init_model(jax.random.PRNGKey(0), jcfg)
+    wide = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
+    cases = {
+        "bfloat16": jax_train_run(jcfg, jparams),
+        "float32": jax_train_run(dataclasses.replace(jcfg, dtype="float32"), wide),
+    }
+    return jcfg, jax_flat_params(jparams), cases
+
+
+def write_train_fixture(arch: str) -> str:
+    from repro_torch.config import ModelConfig
+    from repro_torch.models.replay import save_model_replay
+
+    path = TRAIN_FIXTURES[arch]
+    jcfg, flat, cases = train_fixture(arch)
+    save_model_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), flat, cases)
+    return path
+
+
 if __name__ == "__main__":
     for seed in FIXTURE_SEEDS:
         for name in FIXTURE_CASES:
@@ -439,3 +577,5 @@ if __name__ == "__main__":
     for arch in SERVE_FIXTURES:
         print(write_serve_fixture(arch))
     print(write_ssm_fixture())
+    for arch in TRAIN_FIXTURES:
+        print(write_train_fixture(arch))
