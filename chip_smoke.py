@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the FLIC fog cache, its serving engine
-and its Mamba2 model on one NVIDIA card.
+"""Drive the PyTorch/CUDA port of the FLIC fog cache, its serving engine,
+its Mamba2 and MoE models, its trainer and its example drivers on one
+NVIDIA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
@@ -147,9 +148,28 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     profiled step; then the same steps through ``Trainer`` with a fault
     injected at step 3 and recovered from step 2's checkpoint, its params
     against the uninterrupted run's;
-19. ``train_replay``: the committed JAX training fixtures (Granite-8B and
-    Mamba2 smoke configs, float32 and bfloat16) through the port's train
-    step with the kernels, within the CPU tests' tolerances.
+19. ``train_replay``: the committed JAX training fixtures (Granite-8B,
+    Mamba2 and DeepSeek-V2-Lite smoke configs, float32 and bfloat16; the
+    last with MLA, MoE and its load-balance loss) through the port's train
+    step with the kernels, within the CPU tests' tolerances;
+20. ``moe``: the fifth main path, DeepSeek-V2-Lite-16B at full width (MLA,
+    64 routed experts top-6 and 2 shared; 15,706,484,224 random bfloat16
+    parameters from seed 0, the router float32), 4 prompts of 512 tokens
+    prefilled at batch 4 and decoded 32 greedy steps against contiguous
+    latent caches; finite logits, the same tokens from a second decode,
+    layer 1's ``moe_forward`` against a direct float32 reference of its
+    kept (token, expert) pairs, the pairs dropped at capacity per layer,
+    times, profiles, peak memory, and decode step 1 against a prefill
+    continuation; no hand kernel lies on this path (JAX's dispatch and MLA
+    are XLA, outside any Pallas kernel);
+21. ``moe_replay``: the committed JAX MoE fixtures (DeepSeek-V2-Lite's and
+    Qwen3-MoE's smoke configs, float32 and bfloat16) through the port,
+    teacher-forced, within the CPU tests' tolerances;
+22. ``example``: the four example drivers (``python -m
+    repro_torch.examples.<name>``: ``quickstart``, ``serve_paged``,
+    ``cityscale_cache_sim`` with the fused engine, ``train_lm`` with a
+    fault) in processes of their own, started together; each must exit 0
+    with its closing line.
 
 After each engine cell (``dense``, ``city``, ``replicate``, ``poisson``,
 ``trace``) a ``profile`` line checks that a tick never synchronises the host
@@ -165,6 +185,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import shutil
 import statistics
@@ -2753,10 +2774,12 @@ def train_dense_phase(torch, device) -> dict:
 
 
 def train_replay_phase(torch, device) -> None:
-    """The committed JAX training fixtures (Granite-8B and Mamba2 smoke
-    configs, float32 and bfloat16) through the port's train step with the
-    kernels, held to the CPU tests' ``TRAIN_TOL``; the Mamba2 replays must
-    launch ``ssd_scan_bwd`` once a layer for each gradient they take."""
+    """The committed JAX training fixtures (Granite-8B, Mamba2 and
+    DeepSeek-V2-Lite smoke configs, float32 and bfloat16; the last with
+    MLA, MoE and its load-balance loss in the gradient) through the port's
+    train step with the kernels, held to the CPU tests' ``TRAIN_TOL``; the
+    Mamba2 replays must launch ``ssd_scan_bwd`` once a layer for each
+    gradient they take."""
     from repro_torch.kernels import ops
     from repro_torch.models.replay import load_model_replay
     from repro_torch.train.replay import (
@@ -2766,7 +2789,7 @@ def train_replay_phase(torch, device) -> None:
         train_case_ok,
     )
 
-    for arch in ("granite_8b", "mamba2_370m"):
+    for arch in ("granite_8b", "mamba2_370m", "deepseek_v2_lite_16b"):
         path = ROOT / "src" / "repro_torch" / "testdata" / f"train_{arch}_smoke.npz"
         cfg, tree, cases = load_model_replay(path)
         for dtype, case in sorted(cases.items()):
@@ -2780,6 +2803,272 @@ def train_replay_phase(torch, device) -> None:
             if not train_case_ok(res, TRAIN_TOL[dtype]) or res["launches"] != want:
                 raise AssertionError(f"train replay {arch} {dtype}: {res}, launches expected {want}")
             emit("train_replay", arch=arch, case=dtype, tol=TRAIN_TOL[dtype], **res)
+
+
+MOE_ARCH = "deepseek_v2_lite_16b"
+MOE_PARAMS = 15_706_484_224      # JAX's param_count of the config
+MOE_BATCH, MOE_PROMPT_LEN, MOE_DECODE_STEPS = 4, 512, 32
+# moe_forward (bfloat16) against the direct float32 reference at layer 1:
+# the largest |difference| over the reference's largest |value|, at most 8
+# bfloat16 steps (2^-8 each): the path rounds the expert products, the
+# SwiGLU, the gated contributions, their k adds and the shared experts to
+# bfloat16.  A lost or misrouted (token, expert) pair moves its token by a
+# whole gated expert output.
+MOE_DISPATCH_TOL = 8 * 2.0 ** -8
+
+
+def moe_generate(torch, cfg, params, prefill_caches, first_tok, prompt_len: int) -> dict:
+    """``MOE_DECODE_STEPS`` greedy ``decode_step``s from ``first_tok`` on the
+    prefill caches zero-padded to the prompt plus the steps (new tensors:
+    the prefill caches stay as they are), each step timed on the host clock
+    between synchronisations.  ``last``: the last step's inputs."""
+    from repro_torch.models.model import decode_step
+    from repro_torch.models.replay import pad_caches
+
+    caches = pad_caches(prefill_caches, prompt_len + MOE_DECODE_STEPS)
+    tok = first_tok
+    pos = torch.full((tok.shape[0],), prompt_len, dtype=torch.int32, device=tok.device)
+    gen, step_logits, decode_ms = [tok], [], []
+    for _ in range(MOE_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = (tok, pos, caches)
+        out, caches = decode_step(params, cfg, tok, pos, caches)
+        tok = out[:, 0].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+        step_logits.append(out[:, 0])
+        gen.append(tok)
+        pos = pos + 1
+    return dict(tokens=torch.cat(gen, dim=1), logits=torch.stack(step_logits),
+                decode_ms=decode_ms, last=last)
+
+
+def recording_moe(torch, record: dict):
+    """A ``moe_forward`` that records, per MoE layer in call order, the
+    (token, expert) pairs dropped at capacity, and the first layer's
+    parameters, input and output."""
+    from repro_torch.models import moe as moe_mod
+
+    plain = moe_mod.moe_forward
+
+    def moe_forward(p, cfg, x):
+        y, aux = plain(p, cfg, x)
+        keep = moe_mod.moe_plan(p, cfg, x)[3][0]
+        record["dropped"].append(int((~keep).sum()))
+        if "first" not in record:
+            record["first"] = (p, x.detach().clone(), y.detach().clone())
+        return y, aux
+
+    return moe_forward
+
+
+def moe_reference(torch, p, cfg, x):
+    """``moe_forward``'s function computed directly, in float32: for each
+    kept (token, expert) pair of the dispatch plan, ``gate * (silu(x W_g) *
+    (x W_u)) W_d`` of that expert alone, summed per token, plus the shared
+    experts.  Returns (y (B,S,D) float32, kept pairs)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe as moe_mod
+
+    xg, cap, _, (keep, rows, sw, stok) = moe_mod.moe_plan(p, cfg, x)
+    g, t, d = xg.shape
+    y = torch.zeros((g, t, d), dtype=torch.float32, device=x.device)
+    expert = torch.div(rows, cap, rounding_mode="floor")
+    for e in range(cfg.moe_num_experts):
+        gi, pi = (keep & (expert == e)).nonzero(as_tuple=True)
+        tok = stok[gi, pi]
+        xs = xg[gi, tok].float()
+        h = F.silu(xs @ p["w_gate"][e].float()) * (xs @ p["w_up"][e].float())
+        y.index_put_((gi, tok), sw[gi, pi][:, None] * (h @ p["w_down"][e].float()),
+                     accumulate=True)
+    y = y.reshape(x.shape)
+    if "shared" in p:
+        sp, xf = p["shared"], x.float()
+        y = y + (F.silu(xf @ sp["w_gate"].float()) * (xf @ sp["w_up"].float())) @ sp["w_down"].float()
+    return y, int(keep.sum())
+
+
+def moe_phase(torch, device) -> dict:
+    """The fifth main path: DeepSeek-V2-Lite-16B at full width (27 layers:
+    MLA, a dense first FFN, 26 MoE layers of 64 routed experts top-6 and 2
+    shared), random bfloat16 weights from ``torch.Generator`` seed 0 (the
+    router float32), 4 prompts of 512 seeded tokens prefilled at batch 4,
+    then 32 greedy ``decode_step``s against contiguous latent caches.
+    Again the same decode (the same tokens, or it fails).  One more
+    prefill records the pairs dropped at capacity per MoE layer and holds
+    layer 1's ``moe_forward`` against ``moe_reference`` within
+    ``MOE_DISPATCH_TOL``.  Times, profiles, peak memory, and decode step 1
+    against a prefill of the prompt and its first token, with the
+    configured capacity and with one no expert fills (printed)."""
+    import numpy as np
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import decode_step, init_model, model_param_defs, prefill
+    from repro_torch.models.params import param_count
+
+    cfg = get_arch(MOE_ARCH)
+    n_params = param_count(model_param_defs(cfg))
+    if n_params != MOE_PARAMS:
+        raise AssertionError(f"moe: {n_params} parameters, JAX counts {MOE_PARAMS}")
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator().manual_seed(0), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT_LEN))
+                              .astype(np.int32)).to(device)
+    batch = {"tokens": tokens}
+
+    prefill(params, cfg, batch)                     # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    run = moe_generate(torch, cfg, params, caches, first, MOE_PROMPT_LEN)
+    peak = torch.cuda.max_memory_allocated()
+    again = moe_generate(torch, cfg, params, caches, first, MOE_PROMPT_LEN)
+    if not bool(torch.isfinite(logits).all() & torch.isfinite(run["logits"]).all()):
+        raise AssertionError("moe: logits are not finite")
+    if not torch.equal(run["tokens"], again["tokens"]):
+        raise AssertionError("moe: a second decode run gave other tokens")
+    spec = (cfg.num_layers, MOE_BATCH, MOE_PROMPT_LEN, cfg.kv_lora_rank + cfg.rope_head_dim)
+    got = (sum(c["blk0"]["latent"].shape[0] for c in caches), *caches[0]["blk0"]["latent"].shape[1:])
+    if got != spec:
+        raise AssertionError(f"moe: latent caches {got}, expected {spec}")
+
+    record = {"dropped": []}
+    plain = moe_mod.moe_forward
+    moe_mod.moe_forward = recording_moe(torch, record)
+    try:
+        rlogits, _ = prefill(params, cfg, batch)
+    finally:
+        moe_mod.moe_forward = plain
+    if not torch.equal(rlogits, logits) or len(record["dropped"]) != cfg.num_layers - 1:
+        raise AssertionError(f"moe: the recorded prefill ran {len(record['dropped'])} MoE "
+                             "layers or gave other logits")
+    p1, x1, y1 = record.pop("first")
+    want, kept = moe_reference(torch, p1, cfg, x1)
+    scale = float(want.abs().max())
+    err = float((y1.float() - want).abs().max())
+    pairs = MOE_BATCH * MOE_PROMPT_LEN * cfg.moe_top_k
+    dispatch = dict(layer=1, max_abs_err=err, max_abs_ref=scale, rel_err=err / scale,
+                    tol_rel=MOE_DISPATCH_TOL,
+                    mean_abs_err=float((y1.float() - want).abs().mean()),
+                    pairs=pairs, kept=kept, dropped=record["dropped"][0])
+    if kept + record["dropped"][0] != pairs or not err <= MOE_DISPATCH_TOL * scale:
+        raise AssertionError(f"moe: layer 1's moe_forward against the direct reference: {dispatch}")
+    del p1, x1, y1, want
+
+    # decode step 1 against a prefill of the prompt and its first token, as
+    # configured (the prefill drops pairs at capacity, decode at 4 tokens
+    # never does) and with a capacity no expert can fill (2E/K: cap >= S)
+    longer = {"tokens": torch.cat([tokens, first], dim=1)}
+    step1 = run["logits"][0]
+    gap = {}
+    for name, c in (("as_configured", cfg), ("no_drops", dataclasses.replace(
+            cfg, moe_capacity_factor=2 * cfg.moe_num_experts / cfg.moe_top_k))):
+        cont = prefill(params, c, longer)[0][:, -1]
+        gap[name] = dict(step=1, max_abs_diff=float((step1 - cont).abs().max()),
+                         argmax_equal=f"{int((step1.argmax(-1) == cont.argmax(-1)).sum())}"
+                                      f"/{MOE_BATCH}")
+        del cont
+
+    tok, pos, dcaches = run["last"]
+    decode_med = statistics.median(run["decode_ms"])
+    prof_decode = profile_calls(torch, lambda: decode_step(params, cfg, tok, pos, dcaches), 3,
+                                decode_med, "gemm")
+    prof_prefill = profile_calls(torch, lambda: prefill(params, cfg, batch), 1, prefill_ms,
+                                 "gemm")
+    emit("moe", arch=cfg.name, params=n_params, init_s=init_s, batch=MOE_BATCH,
+         prompt_len=MOE_PROMPT_LEN, decode_steps=MOE_DECODE_STEPS,
+         experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+         capacity_prefill=moe_mod._capacity(cfg, MOE_PROMPT_LEN),
+         capacity_decode=moe_mod._capacity(cfg, MOE_BATCH),
+         prefill_ms=prefill_ms,
+         prefill_tokens_per_s=MOE_BATCH * MOE_PROMPT_LEN / (prefill_ms / 1e3),
+         decode_ms_per_step=run["decode_ms"], decode_ms_per_step_median=decode_med,
+         decode_tokens_per_s=MOE_BATCH / (decode_med / 1e3),
+         decode_repeat_tokens_equal=True, dropped_by_moe_layer=record["dropped"],
+         dispatch_check=dispatch, decode_vs_prefill=gap,
+         max_abs_logit=float(run["logits"].abs().max()), peak_memory_bytes=peak,
+         profile_decode_step=prof_decode, profile_prefill=prof_prefill,
+         tokens_row0=run["tokens"][0].tolist())
+    return dict(dispatch=dispatch)
+
+
+def moe_replay_phase(torch, device) -> None:
+    """The committed JAX MoE fixtures (DeepSeek-V2-Lite's and Qwen3-MoE's
+    smoke configs, float32 and bfloat16) through the port on the card,
+    teacher-forced, held to the CPU tests' ``MOE_TOL``."""
+    from repro_torch.models.replay import (
+        MOE_TOL,
+        compare_moe_case,
+        load_model_replay,
+        moe_case_ok,
+        replay_moe_case,
+    )
+
+    for arch in ("deepseek_v2_lite_16b", "qwen3_moe_235b_a22b"):
+        cfg, tree, cases = load_model_replay(
+            ROOT / "src" / "repro_torch" / "testdata" / f"moe_{arch}_smoke.npz")
+        for dtype, case in sorted(cases.items()):
+            res = compare_moe_case(case, replay_moe_case(cfg, tree, dtype, case, device),
+                                   MOE_TOL[dtype])
+            if not moe_case_ok(res, MOE_TOL[dtype]):
+                raise AssertionError(f"moe replay {arch} {dtype}: {res}")
+            emit("moe_replay", arch=arch, case=dtype, tol=MOE_TOL[dtype], **res)
+
+
+EXAMPLE_TIMEOUT_S = 300
+EXAMPLES = {   # module of repro_torch.examples -> (arguments, what its last line must hold)
+    "quickstart": ([], "WAN bytes vs no-cache"),
+    "serve_paged": ([], "FLIC page-manager stats:"),
+    "cityscale_cache_sim": (["--nodes", "100", "--minutes", "5", "--outage-at", "120",
+                             "--outage-s", "60", "--engine", "fused"],
+                            "FLIC rode out the outage"),
+    "train_lm": (["--steps", "60", "--fault-at", "30"], "via ckpt restart"),
+}
+
+
+def examples_phase(torch) -> None:
+    """The four example drivers on the card, each ``python -m
+    repro_torch.examples.<name>`` in a process of its own, all started
+    together: each must exit 0 and print its closing line; ``serve_paged``
+    must reuse all 4 prefills.  Every process is stopped before return."""
+    ckpt = ROOT / "build" / "chip_smoke_train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, (args, _) in EXAMPLES.items():
+            extra = ["--ckpt-dir", str(ckpt)] if name == "train_lm" else []
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.examples.{name}", *args, *extra],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+            lines = out.strip().splitlines()
+            ok = proc.returncode == 0 and lines and EXAMPLES[name][1] in lines[-1]
+            if name == "serve_paged":
+                ok = ok and any("prefill reused: 4/4" in x for x in lines)
+            if not ok:
+                raise AssertionError(f"example {name}: rc {proc.returncode}, "
+                                     f"stdout {out[-1500:]!r}, stderr {err[-1500:]!r}")
+            emit("example", name=name, args=EXAMPLES[name][0], rc=proc.returncode,
+                 seconds_since_start=time.perf_counter() - t0, closing_lines=lines[-4:])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(ckpt, ignore_errors=True)
 
 
 def main() -> None:
@@ -2908,6 +3197,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_replay_phase(torch, device)
     elapsed("train")
+
+    torch.cuda.empty_cache()
+    moe_phase(torch, device)
+    torch.cuda.empty_cache()
+    moe_replay_phase(torch, device)
+    examples_phase(torch)
+    elapsed("moe and examples")
 
     # Headline case of each FLIC kernel: the first main-path case of the
     # kernels phase.  Launches: the main path's kernel runs of the five

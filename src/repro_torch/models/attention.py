@@ -1,6 +1,6 @@
-"""Attention for GQA stacks: full, flash (online softmax) and decode.
+"""Attention: GQA (with bias / qk-norm variants) and MLA (DeepSeek-V2).
 
-Port of the GQA half of ``repro.models.attention``.  The score paths are
+Port of ``repro.models.attention``.  The score paths are
 plain PyTorch einsums in float32, as JAX writes them (not
 ``scaled_dot_product_attention``, whose reduction differs):
 
@@ -12,8 +12,10 @@ plain PyTorch einsums in float32, as JAX writes them (not
 
 The FLIC-paged decode path is ``repro_torch.serving.serve_step``; it reads
 K/V through the ``paged_attention`` kernel.  Without a mesh the JAX
-package's KV-head expansion is 1, so the port has none.  MLA and the int8
-KV cache are later work (ROADMAP.md, Queue 1).
+package's KV-head expansion is 1, so the port has none.  MLA
+(``mla_defs``, ``mla_forward``, ``mla_decode``) keeps a compressed latent
+cache ``(B, S, r+dr)``; its decode absorbs ``W_uk`` and ``W_uv`` into the
+query and output.  The int8 KV cache is later work (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -199,3 +201,85 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
     out = decode_attention(q, k_cache, v_cache, pos + 1)
     y = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
     return y, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed-latent KV
+# ---------------------------------------------------------------------------
+
+def mla_defs(cfg: ModelConfig, dtype) -> dict:
+    h, dn, dr, dv = cfg.num_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    return {
+        "w_q": ParamDef((cfg.d_model, h, dn + dr), ("embed_in", "heads", "head_dim"), dtype=dtype),
+        "w_dkv": ParamDef((cfg.d_model, r), ("embed_in", "lora"), dtype=dtype),
+        "kv_norm": rmsnorm_defs(r, dtype),
+        "w_uk": ParamDef((r, h, dn), ("lora", "heads", "head_dim"), dtype=dtype),
+        "w_uv": ParamDef((r, h, dv), ("lora", "heads", "head_dim"), dtype=dtype),
+        "w_kr": ParamDef((cfg.d_model, dr), ("embed_in", "head_dim"), dtype=dtype),
+        "w_o": ParamDef((h, dv, cfg.d_model), ("heads_in", "head_dim", "embed_out"), dtype=dtype),
+    }
+
+
+def _mla_latent(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """(c_kv (B,S,r), k_rope (B,S,dr)): the normalised latent and the
+    shared rotary key of each position."""
+    c_kv = rmsnorm(p["kv_norm"], x @ p["w_dkv"], cfg.norm_eps)
+    k_rope = apply_rope((x @ p["w_kr"])[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_query(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """(q_nope (B,S,h,dn), q_rope (B,S,h,dr)), RoPE on the second."""
+    dn = cfg.nope_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["w_q"])
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def mla_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training/prefill MLA. Returns (y, latent_cache (B,S,r+dr))."""
+    q_nope, q_rope = _mla_query(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], cfg.rope_head_dim)],
+                  dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    if x.shape[1] > FLASH_THRESHOLD:
+        out = flash_attention(qf, k, v, causal=True)
+    else:
+        out = full_attention(qf, k, v, causal=True)
+    y = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+    return y, torch.cat([c_kv, k_rope], dim=-1)
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
+               latent_cache: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Absorbed-weight MLA decode against the compressed latent cache.
+
+    latent_cache: (B, S, r+dr), per position [c_kv | k_rope].  The fresh
+    latent row is written at ``pos`` IN PLACE before attending, so the
+    token attends to itself; scores and softmax in float32 with scale
+    ``1/sqrt(dn+dr)`` over positions ``<= pos``.  Returns (y, the cache
+    passed in).
+    """
+    r = cfg.kv_lora_rank
+    c_new, kr_new = _mla_latent(p, cfg, x, pos[:, None])
+    bidx = torch.arange(x.shape[0], device=x.device)
+    latent_cache[bidx, pos.long()] = torch.cat([c_new, kr_new], dim=-1)[:, 0].to(
+        latent_cache.dtype)
+
+    q_nope, q_rope = _mla_query(p, cfg, x, pos[:, None])
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])      # absorb W_uk: (B,1,h,r)
+    c_kv, k_rope = latent_cache[..., :r], latent_cache[..., r:]
+    scale = inv_sqrt(cfg.nope_head_dim + cfg.rope_head_dim)
+    s = (torch.einsum("bshr,bkr->bshk", f32(q_lat), f32(c_kv))
+         + torch.einsum("bshd,bkd->bshk", f32(q_rope), f32(k_rope))) * scale   # (B,1,h,S)
+    mask = torch.arange(latent_cache.shape[1], device=x.device)[None] <= pos[:, None]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bshk,bkr->bshr", w, f32(c_kv))           # (B,1,h,r)
+    out = torch.einsum("bshr,rhk->bshk", o_lat, f32(p["w_uv"])).to(x.dtype)
+    y = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
+    return y, latent_cache

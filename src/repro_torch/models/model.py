@@ -1,15 +1,17 @@
 """Top-level model API: param defs, init, forward, prefill, decode.
 
-Port of ``repro.models.model`` for the stacks the port runs (dense GQA
-and Mamba2 SSM):
+Port of ``repro.models.model`` for the stacks the port runs (dense GQA,
+Mamba2 SSM, and the MoE family: GQA or MLA mixers with expert FFNs):
 
   * ``model_param_defs(cfg)``        — ParamDef tree (single source of truth);
   * ``init_model(cfg, generator, device)`` — random weights from a seed, on
     the card unless ``device`` says otherwise;
   * ``forward(params, cfg, batch)``  — hidden states for train/prefill;
-  * ``loss_fn``                       — chunked cross-entropy (``chunked_ce``);
+  * ``loss_fn``                       — chunked cross-entropy (``chunked_ce``)
+    plus 0.01 x the MoE load-balance loss;
   * ``prefill`` / ``decode_step``    — serving with per-layer caches
-    (contiguous K/V for attention, conv window and SSD state for Mamba2).
+    (contiguous K/V for attention, the latent rows for MLA, conv window and
+    SSD state for Mamba2).
 
 ``ssd_scan`` is the Mamba2 chunk scan: by default ``kernels.ops.ssd_scan``
 (the CUDA kernel on the card), or ``kernels.ref.ssd_scan_ref``, its plain
@@ -63,8 +65,9 @@ def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train",
             ssd_scan: ScanFn = ops.ssd_scan, remat: bool = False, remat_policy: str = "dots"):
     """Returns (hidden, aux_loss, caches, text_offset). Caches only in
     prefill; ``remat`` (train mode) recomputes each layer in the backward
-    pass (``stack.apply_group``).  ``aux`` is 0: the ported families have
-    no auxiliary loss."""
+    pass (``stack.apply_group``).  ``aux`` (0-d float32) is the MoE
+    load-balance loss summed over the layers, 0 for a stack without
+    experts."""
     if cfg.family == "vlm" and "patches" in batch:
         raise NotImplementedError("the VLM patch prefix is not ported yet (ROADMAP.md, Queue 1)")
     x = embed_tokens(params["embed"], batch["tokens"])
@@ -72,14 +75,15 @@ def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train",
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     _, dec_groups = plan_groups(cfg)
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, g in enumerate(dec_groups):
-        x, c = apply_group(params["dec"][f"g{i}"], cfg, g, x, pos,
-                           "prefill" if mode == "prefill" else "train",
-                           ssd_scan=ssd_scan, remat=remat, remat_policy=remat_policy)
+        x, c, a = apply_group(params["dec"][f"g{i}"], cfg, g, x, pos,
+                              "prefill" if mode == "prefill" else "train",
+                              ssd_scan=ssd_scan, remat=remat, remat_policy=remat_policy)
+        aux = aux + a
         if mode == "prefill":
             caches.append(c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, caches if mode == "prefill" else None, 0
 
 
@@ -142,16 +146,16 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: torch.Tensor
     """One token for every sequence in the batch.
 
     token: (B,1) int32; pos: (B,) current lengths; caches: stacked per group
-    (``decode_cache_specs``).  Attention K/V caches are updated IN PLACE
-    and returned; Mamba2 states come back as new tensors.  Returns (logits
-    (B,1,V) float32, caches).
+    (``decode_cache_specs``).  Attention K/V and MLA latent caches are
+    updated IN PLACE and returned; Mamba2 states come back as new tensors.
+    Returns (logits (B,1,V) float32, caches).
     """
     x = embed_tokens(params["embed"], token)
     _, dec_groups = plan_groups(cfg)
     new_caches = []
     for i, g in enumerate(dec_groups):
-        x, c = apply_group(params["dec"][f"g{i}"], cfg, g, x, None, "decode",
-                           cache=caches[i], kv_len=pos)
+        x, c, _ = apply_group(params["dec"][f"g{i}"], cfg, g, x, None, "decode",
+                              cache=caches[i], kv_len=pos)
         new_caches.append(c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = f32(x @ _lm_head_weight(params, cfg))

@@ -2,12 +2,16 @@
 
 Port of ``repro.models.stack``.  ``BlockDef``, ``Group`` and
 ``plan_groups`` are copied whole; the rest supports the blocks the port can
-run, attention (``mixer="attn"``) with a dense MLP (``ffn="mlp"``) and a
-Mamba2 mixer alone (``mixer="ssm"``, ``ffn="none"``), and raises
-``NotImplementedError`` for any other block.  JAX's ``lax.scan`` over
-layers is a Python loop over the leading ``layers`` axis of each
-parameter; its ``jax.checkpoint`` of the scan body (``remat``) is
-``torch.utils.checkpoint`` of each step.
+run (``PORTED_BLOCKS``): an attention mixer (GQA ``"attn"`` or MLA
+``"mla"``) with a dense MLP (``ffn="mlp"``, the width ``dense_ff`` where a
+block sets it) or a mixture of experts (``ffn="moe"``), and a Mamba2 mixer
+alone (``mixer="ssm"``, ``ffn="none"``).  It raises
+``NotImplementedError`` for any other block (the hybrid's SSM + MLP and the
+cross-attention decoder).  JAX's ``lax.scan`` over layers is a Python loop
+over the leading ``layers`` axis of each parameter; its ``jax.checkpoint``
+of the scan body (``remat``) is ``torch.utils.checkpoint`` of each step.
+Every block returns the MoE load-balance loss (0 but for MoE blocks),
+which a group sums over its layers in order.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
 from repro_torch.models.params import stack_defs
@@ -87,14 +92,15 @@ def plan_groups(cfg: ModelConfig) -> tuple[list[Group], list[Group]]:
     return [], [Group(cfg.num_layers, (BlockDef("attn", "mlp"),))]
 
 
-PORTED_BLOCKS = (("attn", "mlp"), ("ssm", "none"))
+PORTED_BLOCKS = (("attn", "mlp"), ("attn", "moe"), ("mla", "mlp"), ("mla", "moe"),
+                 ("ssm", "none"))
 
 
 def _supported(bd: BlockDef) -> None:
     if (bd.mixer, bd.ffn) not in PORTED_BLOCKS or bd.cross:
         raise NotImplementedError(
-            f"block {bd} is not ported yet: the port runs attention + dense MLP "
-            "and Mamba2 blocks (ROADMAP.md, Queue 1)"
+            f"block {bd} is not ported yet: the port runs attention or MLA with a "
+            "dense MLP or MoE, and Mamba2 blocks (ROADMAP.md, Queue 1)"
         )
 
 
@@ -104,14 +110,15 @@ def _supported(bd: BlockDef) -> None:
 
 def _block_defs(cfg: ModelConfig, bd: BlockDef, dtype) -> dict:
     _supported(bd)
-    if bd.mixer == "ssm":
-        return {"ln1": rmsnorm_defs(cfg.d_model, dtype), "mixer": ssm_mod.ssm_defs(cfg, dtype)}
-    return {
-        "ln1": rmsnorm_defs(cfg.d_model, dtype),
-        "mixer": attn.gqa_defs(cfg, dtype),
-        "ln2": rmsnorm_defs(cfg.d_model, dtype),
-        "ffn": mlp_defs(cfg.d_model, bd.dense_ff or cfg.d_ff, dtype),
-    }
+    mixer = {"attn": attn.gqa_defs, "mla": attn.mla_defs, "ssm": ssm_mod.ssm_defs}[bd.mixer]
+    d: dict[str, Any] = {"ln1": rmsnorm_defs(cfg.d_model, dtype), "mixer": mixer(cfg, dtype)}
+    if bd.ffn == "mlp":
+        d["ln2"] = rmsnorm_defs(cfg.d_model, dtype)
+        d["ffn"] = mlp_defs(cfg.d_model, bd.dense_ff or cfg.d_ff, dtype)
+    elif bd.ffn == "moe":
+        d["ln2"] = rmsnorm_defs(cfg.d_model, dtype)
+        d["ffn"] = moe_mod.moe_defs(cfg, dtype)
+    return d
 
 
 def group_param_defs(cfg: ModelConfig, g: Group, dtype) -> dict:
@@ -133,6 +140,9 @@ def _block_cache_spec(cfg: ModelConfig, bd: BlockDef, steps: int, batch: int,
             "ssd": CacheSpec((steps, batch, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state),
                              torch.float32),
         }
+    if bd.mixer == "mla":
+        return {"latent": CacheSpec((steps, batch, seq, cfg.kv_lora_rank + cfg.rope_head_dim),
+                                    torch.bfloat16)}
     shape = (steps, batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": CacheSpec(shape, torch.bfloat16), "v": CacheSpec(shape, torch.bfloat16)}
 
@@ -140,6 +150,7 @@ def _block_cache_spec(cfg: ModelConfig, bd: BlockDef, steps: int, batch: int,
 def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> list[dict]:
     """Per decoder group, ``{"blk<i>": {name: CacheSpec}}`` stacked over
     steps: attention ``k``/``v`` bfloat16 ``(steps, batch, seq, Hkv, D)``;
+    MLA ``latent`` bfloat16 ``(steps, batch, seq, r+dr)``;
     Mamba2 ``conv`` bfloat16 ``(steps, batch, K-1, conv_dim)`` (the last
     K-1 pre-activation conv inputs) and ``ssd`` float32 ``(steps, batch, H,
     P, N)``."""
@@ -154,8 +165,10 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> list[dict]:
 
 def _apply_block(bp: dict, cfg: ModelConfig, bd: BlockDef, x, positions, mode: str,
                  cache: Optional[dict], kv_len, ssd_scan: ssm_mod.ScanFn = ops.ssd_scan):
-    """One sublayer. Returns (x, new_cache)."""
+    """One sublayer. Returns (x, new_cache, aux): ``aux`` is the MoE
+    load-balance loss, 0.0 for a block without experts."""
     _supported(bd)
+    aux = 0.0
     new_cache: dict[str, Any] = {}
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     if bd.mixer == "ssm":
@@ -167,8 +180,15 @@ def _apply_block(bp: dict, cfg: ModelConfig, bd: BlockDef, x, positions, mode: s
             y, st = ssm_mod.ssm_forward(bp["mixer"], cfg, h, ssd_scan=ssd_scan)
             if mode == "prefill":
                 new_cache = {"conv": st.conv.to(torch.bfloat16), "ssd": st.ssd}
-        return x + y, new_cache
-    if mode == "decode":
+    elif bd.mixer == "mla":
+        if mode == "decode":
+            y, lat_cache = attn.mla_decode(bp["mixer"], cfg, h, kv_len, cache["latent"])
+            new_cache = {"latent": lat_cache}
+        else:
+            y, latent = attn.mla_forward(bp["mixer"], cfg, h, positions)
+            if mode == "prefill":
+                new_cache = {"latent": latent}
+    elif mode == "decode":
         y, k_cache, v_cache = attn.gqa_decode(
             bp["mixer"], cfg, h, kv_len, cache["k"], cache["v"])
         new_cache = {"k": k_cache, "v": v_cache}
@@ -177,8 +197,12 @@ def _apply_block(bp: dict, cfg: ModelConfig, bd: BlockDef, x, positions, mode: s
         if mode == "prefill":
             new_cache = {"k": upd.k, "v": upd.v}
     x = x + y
-    h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
-    return x + mlp(bp["ffn"], h), new_cache
+    if bd.ffn == "mlp":
+        x = x + mlp(bp["ffn"], rmsnorm(bp["ln2"], x, cfg.norm_eps))
+    elif bd.ffn == "moe":
+        y, aux = moe_mod.moe_forward(bp["ffn"], cfg, rmsnorm(bp["ln2"], x, cfg.norm_eps))
+        x = x + y
+    return x, new_cache, aux
 
 
 def _index(tree, i: int):
@@ -200,16 +224,19 @@ def _save_dots(ctx, func, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _train_step(step_params: dict, x, positions, cfg: ModelConfig, g: Group,
+def _train_step(step_params: dict, x, aux, positions, cfg: ModelConfig, g: Group,
                 ssd_scan: ssm_mod.ScanFn):
-    """One step of a group in train mode (the body that ``remat`` recomputes)."""
+    """One step of a group in train mode (the body that ``remat``
+    recomputes): (x, aux plus each block's aux, in order)."""
     for i, bd in enumerate(g.blocks):
-        x, _ = _apply_block(step_params[f"blk{i}"], cfg, bd, x, positions, "train", None,
-                            None, ssd_scan)
-    return x
+        x, _, a = _apply_block(step_params[f"blk{i}"], cfg, bd, x, positions, "train", None,
+                               None, ssd_scan)
+        if bd.ffn == "moe":
+            aux = aux + a
+    return x, aux
 
 
-def _remat_step(step_params: dict, x, positions, cfg: ModelConfig, g: Group,
+def _remat_step(step_params: dict, x, aux, positions, cfg: ModelConfig, g: Group,
                 ssd_scan: ssm_mod.ScanFn, policy: str):
     """``_train_step`` under ``torch.utils.checkpoint``: its activations are
     recomputed in the backward pass, but for the products that ``"dots"``
@@ -219,28 +246,33 @@ def _remat_step(step_params: dict, x, positions, cfg: ModelConfig, g: Group,
         raise ValueError(f"unknown remat_policy {policy!r}: use one of {REMAT_POLICIES}")
     context = (functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
                if policy == "dots" else ckpt.noop_context_fn)
-    return ckpt.checkpoint(_train_step, step_params, x, positions, cfg, g, ssd_scan,
+    return ckpt.checkpoint(_train_step, step_params, x, aux, positions, cfg, g, ssd_scan,
                            use_reentrant=False, context_fn=context)
 
 
 def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
                 cache=None, kv_len=None, ssd_scan: ssm_mod.ScanFn = ops.ssd_scan,
                 remat: bool = False, remat_policy: str = "dots"):
-    """Run a group's steps in order.  Returns (x, caches stacked over steps).
+    """Run a group's steps in order.  Returns (x, caches stacked over steps,
+    aux): ``aux`` float32, the blocks' MoE losses summed in layer order
+    from 0, as JAX's scan carries it.
 
-    Prefill stacks each step's fresh caches.  Decode of attention blocks
-    writes K/V into ``cache`` in place (each step gets a view of its layer)
-    and returns it; decode of Mamba2 blocks stacks each step's new states
-    (new tensors: a float32 model's bfloat16 conv window turns float32, as
-    in JAX).  Train mode returns no caches; with ``remat`` each step is
-    recomputed in the backward pass (``_remat_step``).
+    Prefill stacks each step's fresh caches.  Decode of attention and MLA
+    blocks writes K/V or the latent row into ``cache`` in place (each step
+    gets a view of its layer) and returns it; decode of Mamba2 blocks
+    stacks each step's new states (new tensors: a float32 model's bfloat16
+    conv window turns float32, as in JAX).  Train mode returns no caches;
+    with ``remat`` each step is recomputed in the backward pass
+    (``_remat_step``).
     """
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "train":
         for s in range(g.steps):
             step_params = _index(gp, s)
-            x = (_remat_step(step_params, x, positions, cfg, g, ssd_scan, remat_policy)
-                 if remat else _train_step(step_params, x, positions, cfg, g, ssd_scan))
-        return x, None
+            x, aux = (_remat_step(step_params, x, aux, positions, cfg, g, ssd_scan, remat_policy)
+                      if remat else
+                      _train_step(step_params, x, aux, positions, cfg, g, ssd_scan))
+        return x, None, aux
     per_step = []
     for s in range(g.steps):
         step_params = _index(gp, s)
@@ -248,12 +280,14 @@ def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
         new_caches = {}
         for i, bd in enumerate(g.blocks):
             c_in = None if step_cache is None else step_cache[f"blk{i}"]
-            x, new_caches[f"blk{i}"] = _apply_block(
+            x, new_caches[f"blk{i}"], a = _apply_block(
                 step_params[f"blk{i}"], cfg, bd, x, positions, mode, c_in, kv_len,
                 ssd_scan)
+            if bd.ffn == "moe":
+                aux = aux + a
         per_step.append(new_caches)
-    if mode == "decode" and all(bd.mixer == "attn" for bd in g.blocks):
-        return x, cache
+    if mode == "decode" and all(bd.mixer in ("attn", "mla") for bd in g.blocks):
+        return x, cache, aux
     return x, {blk: {name: torch.stack([c[blk][name] for c in per_step])
                      for name in per_step[0][blk]}
-               for blk in per_step[0]}
+               for blk in per_step[0]}, aux

@@ -47,6 +47,10 @@ TRACKED = {
             "dec/g0/blk0/mixer/norm/scale", "final_norm/scale"),
     "dense": ("dec/g0/blk0/ln1/scale", "dec/g0/blk0/ln2/scale", "dec/g0/blk0/mixer/w_k",
               "dec/g0/blk0/mixer/w_v", "final_norm/scale"),
+    # DeepSeek-V2-Lite's stack: a dense MLA layer (g0), then MLA + MoE (g1);
+    # the float32 router takes the aux loss's gradient
+    "moe": ("dec/g0/blk0/mixer/kv_norm/scale", "dec/g1/blk0/mixer/w_kr",
+            "dec/g1/blk0/ln2/scale", "dec/g1/blk0/ffn/router", "final_norm/scale"),
 }
 FIXTURE_RUN = dict(steps=3, seq=32, batch=4,
                    hyper=dataclasses.asdict(TrainHyper(peak_lr=3e-3, warmup_steps=0,

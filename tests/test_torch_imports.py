@@ -27,7 +27,9 @@ LATE_MODULES = ("core/distributed.py", "core/sharded.py", "core/workload.py",
                 "utils/trees.py", "optim/adamw.py", "optim/schedule.py",
                 "optim/grad_compress.py", "data/pipeline.py", "train/train_step.py",
                 "train/trainer.py", "train/replay.py", "ckpt/checkpoint.py",
-                "launch/train.py")
+                "launch/train.py", "models/moe.py", "examples/quickstart.py",
+                "examples/cityscale_cache_sim.py", "examples/serve_paged.py",
+                "examples/train_lm.py")
 
 
 def test_port_never_imports_jax_or_the_jax_package():

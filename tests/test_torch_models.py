@@ -259,9 +259,9 @@ def test_blocks_the_port_cannot_run_raise():
     with pytest.raises(NotImplementedError):
         _block_defs(tcfg, BlockDef("ssm", "mlp"), torch.float32)
     with pytest.raises(NotImplementedError):
-        _block_defs(tcfg, BlockDef("attn", "moe"), torch.float32)
+        _block_defs(tcfg, BlockDef("ssm", "moe"), torch.float32)
     with pytest.raises(NotImplementedError):
-        _block_defs(tcfg, BlockDef("mla", "mlp"), torch.float32)
+        _block_defs(tcfg, BlockDef("attn", "mlp", cross=True), torch.float32)
     cache = torch.zeros((1, 4, 1, 16), dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="int8"):
         tattn.gqa_decode({}, tcfg, torch.zeros(1, 1, 64), torch.zeros(1, dtype=torch.int32),

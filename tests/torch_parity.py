@@ -18,7 +18,9 @@ Not a test module: it imports both packages, which only tests may do.
   ``serve_fixture``/``write_serve_fixture`` the serving ones (Granite-8B's
   and Granite-3-8B's smoke configs);
   ``ssm_fixture``/``write_ssm_fixture`` the Mamba2 one (``jax_ssm_run``);
-  ``train_fixture``/``write_train_fixture`` the training ones
+  ``moe_fixture``/``write_moe_fixture`` the MoE ones (``jax_moe_run``:
+  DeepSeek-V2-Lite's and Qwen3-MoE's smoke configs on ``seeded_params``
+  weights); ``train_fixture``/``write_train_fixture`` the training ones
   (``jax_train_run``: three steps of JAX's ``make_train_step``).
 * ``jax_flat_params``/``nested`` move parameter trees between the layouts.
 """
@@ -481,6 +483,89 @@ def write_ssm_fixture(path: str = SSM_FIXTURE) -> str:
     return path
 
 
+MOE_FIXTURES = {arch: os.path.join(FIXTURE_DIR, f"moe_{arch}_smoke.npz")
+                for arch in ("deepseek_v2_lite_16b", "qwen3_moe_235b_a22b")}
+MOE_BATCH, MOE_PROMPT, MOE_STEPS = 2, 24, 6
+# Smoke configs whose JAX weights would take a fixture past 300 KB: their
+# files hold ``weights_seed`` and both packages draw ``seeded_params``.
+WEIGHTS_SEED = 0
+
+
+def seeded_jax_params(jcfg, seed: int = WEIGHTS_SEED):
+    """``repro_torch.models.replay.seeded_params`` as a JAX parameter tree
+    (bfloat16 leaves from their bits)."""
+    from repro_torch.config import ModelConfig
+    from repro_torch.models.replay import seeded_params
+
+    tree = seeded_params(ModelConfig(**dataclasses.asdict(jcfg)), seed)
+    return jax.tree.map(lambda a: jnp.asarray(a.view(jnp.bfloat16) if a.dtype == np.uint16 else a),
+                        tree)
+
+
+def _jax_caches(caches) -> dict:
+    return {f"cache/g{i}/{blk}/{n}": np.asarray(jnp.asarray(a, jnp.float32))
+            for i, g in enumerate(caches) for blk, c in g.items() for n, a in c.items()}
+
+
+def jax_moe_run(jcfg, jparams, tokens: np.ndarray, steps: int) -> dict:
+    """JAX's ``prefill`` of ``tokens``, its caches zero-padded to the
+    prompt plus ``steps`` in their own dtype, then ``steps`` greedy
+    ``decode_step``s: one MoE case of ``repro_torch.models.replay``."""
+    from repro.models.model import decode_step, prefill
+
+    logits, caches = prefill(jparams, jcfg, {"tokens": jnp.asarray(tokens)})
+    case = {"tokens": tokens, "prefill_logits": np.asarray(logits[:, 0], np.float32),
+            **_jax_caches(caches)}
+    pad = [(0, 0), (0, 0), (0, steps)]
+    caches = jax.tree.map(lambda a: jnp.pad(a, pad + [(0, 0)] * (a.ndim - 3)), caches)
+    tok = tokens[:, -1:]
+    pos = np.full((tokens.shape[0],), tokens.shape[1], np.int32)
+    fed, out = [], []
+    for _ in range(steps):
+        fed.append(tok[:, 0])
+        logits, caches = decode_step(jparams, jcfg, jnp.asarray(tok), jnp.asarray(pos), caches)
+        out.append(np.asarray(logits[:, 0], np.float32))
+        tok = out[-1].argmax(-1).astype(np.int32)[:, None]
+        pos = pos + 1
+    case["fed"] = np.stack(fed).astype(np.int32)
+    case["logits"] = np.stack(out)
+    return case
+
+
+@functools.cache
+def moe_fixture(arch: str) -> tuple:
+    """(JAX config, cases) of the committed MoE fixture of ``arch``: the
+    smoke config in bfloat16 on ``seeded_params`` weights, 2 prompts of 24
+    tokens (the grouped dispatch: S >= E), 6 greedy decode steps (the
+    global one); case ``bfloat16`` runs the weights as they are, case
+    ``float32`` the float32 model on the same weights widened (exactly).
+    Cached: the returned arrays are shared and must not be changed."""
+    from repro.config import get_smoke_arch
+
+    jcfg = get_smoke_arch(arch)
+    jparams = seeded_jax_params(jcfg)
+    tokens = np.random.default_rng(0).integers(
+        0, jcfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).astype(np.int32)
+    wide = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
+    cases = {
+        "bfloat16": jax_moe_run(jcfg, jparams, tokens, MOE_STEPS),
+        "float32": jax_moe_run(dataclasses.replace(jcfg, dtype="float32"), wide, tokens,
+                               MOE_STEPS),
+    }
+    return jcfg, cases
+
+
+def write_moe_fixture(arch: str) -> str:
+    from repro_torch.config import ModelConfig
+    from repro_torch.models.replay import save_model_replay
+
+    path = MOE_FIXTURES[arch]
+    jcfg, cases = moe_fixture(arch)
+    save_model_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), {}, cases,
+                      weights_seed=WEIGHTS_SEED)
+    return path
+
+
 def jax_flat_params(jparams) -> dict[str, np.ndarray]:
     """A JAX parameter (or gradient) tree as ``{"/"-joined path: numpy}``."""
     return {"/".join(str(getattr(k, "key", getattr(k, "name", k))) for k in path): np.asarray(v)
@@ -500,7 +585,9 @@ def nested(flat: dict) -> dict:
 
 
 TRAIN_FIXTURES = {arch: os.path.join(FIXTURE_DIR, f"train_{arch}_smoke.npz")
-                  for arch in ("granite_8b", "mamba2_370m")}
+                  for arch in ("granite_8b", "mamba2_370m", "deepseek_v2_lite_16b")}
+# Training fixtures on ``seeded_params`` weights (the file holds the seed).
+SEEDED_TRAIN = ("deepseek_v2_lite_16b",)
 
 
 def jax_train_run(jcfg, jparams) -> dict:
@@ -544,14 +631,16 @@ def jax_train_run(jcfg, jparams) -> dict:
 def train_fixture(arch: str) -> tuple:
     """(JAX config, flat numpy params, cases) of the committed training
     fixture of ``arch``'s smoke config: weights from ``PRNGKey(0)`` in
-    bfloat16; case ``bfloat16`` trains them as they are, case ``float32``
-    the float32 model on the same weights widened (exactly).  Cached: the
-    returned arrays are shared and must not be changed."""
+    bfloat16 (``SEEDED_TRAIN``: ``seeded_params``); case ``bfloat16``
+    trains them as they are, case ``float32`` the float32 model on the
+    same weights widened (exactly).  Cached: the returned arrays are
+    shared and must not be changed."""
     from repro.config import get_smoke_arch
     from repro.models import init_model
 
     jcfg = get_smoke_arch(arch)
-    jparams = init_model(jax.random.PRNGKey(0), jcfg)
+    jparams = (seeded_jax_params(jcfg) if arch in SEEDED_TRAIN
+               else init_model(jax.random.PRNGKey(0), jcfg))
     wide = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
     cases = {
         "bfloat16": jax_train_run(jcfg, jparams),
@@ -566,7 +655,11 @@ def write_train_fixture(arch: str) -> str:
 
     path = TRAIN_FIXTURES[arch]
     jcfg, flat, cases = train_fixture(arch)
-    save_model_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), flat, cases)
+    if arch in SEEDED_TRAIN:
+        save_model_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), {}, cases,
+                          weights_seed=WEIGHTS_SEED)
+    else:
+        save_model_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), flat, cases)
     return path
 
 
@@ -577,5 +670,7 @@ if __name__ == "__main__":
     for arch in SERVE_FIXTURES:
         print(write_serve_fixture(arch))
     print(write_ssm_fixture())
+    for arch in MOE_FIXTURES:
+        print(write_moe_fixture(arch))
     for arch in TRAIN_FIXTURES:
         print(write_train_fixture(arch))
