@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the FLIC fog cache, its serving engine,
-its Mamba2 and MoE models, its trainer and its example drivers on one
-NVIDIA card.
+its Mamba2, MoE, hybrid and VLM models, its trainer and its example
+drivers on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
@@ -149,9 +149,10 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     injected at step 3 and recovered from step 2's checkpoint, its params
     against the uninterrupted run's;
 19. ``train_replay``: the committed JAX training fixtures (Granite-8B,
-    Mamba2 and DeepSeek-V2-Lite smoke configs, float32 and bfloat16; the
-    last with MLA, MoE and its load-balance loss) through the port's train
-    step with the kernels, within the CPU tests' tolerances;
+    Mamba2, DeepSeek-V2-Lite and Jamba smoke configs, float32 and bfloat16;
+    DeepSeek's with MLA, MoE and its load-balance loss, Jamba's with SSM,
+    MoE and attention blocks in one group) through the port's train step
+    with the kernels, within the CPU tests' tolerances;
 20. ``moe``: the fifth main path, DeepSeek-V2-Lite-16B at full width (MLA,
     64 routed experts top-6 and 2 shared; 15,706,484,224 random bfloat16
     parameters from seed 0, the router float32), 4 prompts of 512 tokens
@@ -169,7 +170,37 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     repro_torch.examples.<name>``: ``quickstart``, ``serve_paged``,
     ``cityscale_cache_sim`` with the fused engine, ``train_lm`` with a
     fault) in processes of their own, started together; each must exit 0
-    with its closing line.
+    with its closing line;
+23. ``hybrid``: the sixth main path, one whole Jamba-1.5-Large period at
+    its published widths (8 of 72 layers: 7 Mamba2 mixers of 256 heads and
+    one GQA attention, dense MLPs and MoE of 16 experts top-2 in turn;
+    45,144,659,968 parameters in the config, 16,153,630,720 held, the four
+    MoE layers sharing one expert stack; bfloat16 from seed 0 with the f32
+    router and Mamba2's published ``a_log``/``dt_bias`` in every SSM
+    layer), 4 prompts of 2,048 tokens prefilled at batch 4 (7
+    ``ssd_scan`` launches) and decoded 32 greedy steps on mixed contiguous
+    caches (K/V at block 4 alone, SSM states at the others); finite
+    logits, the same tokens from a second decode, every scan call of a
+    prefill bitwise equal to plain, layer 1's ``moe_forward`` against
+    ``moe_reference``, the pairs dropped per MoE layer, times, profiles,
+    peak memory, a decode step against a prefill of the same 1,024 tokens;
+    then ``kernels`` (``ssd_scan``): the kernel on the prefill's layer 0
+    (H = 256), timed and bound;
+24. ``hybrid_replay``: the committed JAX hybrid fixture (Jamba's smoke
+    config, float32 and bfloat16) through the port with the kernel,
+    teacher-forced, within the CPU tests' tolerances;
+25. ``vlm``: the seventh main path, InternVL2-2B at full width (24 layers,
+    1,889,146,880 random bfloat16 parameters from seed 0) behind 256
+    seeded patch embeddings: 4 x (256 + 512) positions prefilled, 32
+    greedy decode steps from position 768, repeated; the 4 text prompts
+    through ``ServeEngine`` with ``paged_attention`` (once a layer and
+    step), every kernel call held to plain and the run to the contiguous
+    oracle within ``SERVE_TOL``; then ``kernels`` (``paged_attention``):
+    the kernel on that run's layer-0 inputs (G 2), timed with its SDPA
+    yardstick;
+26. ``vlm_replay``: the committed JAX VLM fixture (InternVL2's smoke
+    config with its patches, float32 and bfloat16), teacher-forced, within
+    the CPU tests' tolerances.
 
 After each engine cell (``dense``, ``city``, ``replicate``, ``poisson``,
 ``trace``) a ``profile`` line checks that a tick never synchronises the host
@@ -1251,6 +1282,23 @@ def serve_run(torch, cfg, params, device, prompts, backend, script=None, capture
                      launches=dict(ops.LAUNCHES))
 
 
+def shadowed_run(torch, cfg, params, device, prompts, script, launches: int, label: str,
+                 max_new=SERVE_MAX_NEW):
+    """``serve_run`` teacher-forced on ``script`` with every kernel call held
+    against the plain version on its inputs (``paged_verdict``): fails
+    unless it makes ``launches`` calls, each within the plain version's
+    tolerance.  Returns (engine, largest |kernel - plain|, calls)."""
+    shadow = {"max_err": torch.zeros((), device=device),
+              "excess": torch.full((), -float("inf"), device=device), "calls": 0}
+    eng, _ = serve_run(torch, cfg, params, device, prompts, None, script=script, shadow=shadow,
+                       max_new=max_new)
+    if shadow["calls"] != launches or float(shadow["excess"]) > 0:
+        raise AssertionError(f"{label}: a kernel call left the tolerance of the plain version "
+                             f"(largest error {float(shadow['max_err'])}, "
+                             f"{shadow['calls']} calls)")
+    return eng, float(shadow["max_err"]), shadow["calls"]
+
+
 def contiguous_oracle(torch, cfg, params, device, prompts, scripts):
     """JAX's serving oracle (tests/test_train_ckpt.py:105-134) at batch 4:
     each prompt prefilled alone, its K/V copied into a contiguous
@@ -1403,13 +1451,8 @@ def serve_phase(torch, device) -> dict:
         raise AssertionError(f"serve: prefix reuse {reused}, expected the second wave reused")
     script = {r: by_rid[r].tokens for r in by_rid}
 
-    shadow = {"max_err": torch.zeros((), device=device),
-              "excess": torch.full((), -float("inf"), device=device), "calls": 0}
-    seng, _ = serve_run(torch, cfg, params, device, prompts, None, script=script, shadow=shadow)
-    if shadow["calls"] != launches or float(shadow["excess"]) > 0:
-        raise AssertionError(f"serve: a kernel call left the tolerance of the plain version "
-                             f"(largest error {float(shadow['max_err'])}, "
-                             f"{shadow['calls']} calls)")
+    seng, shadow_err, shadow_calls = shadowed_run(torch, cfg, params, device, prompts, script,
+                                                  launches, "serve")
     rerun_diff = logit_diff(torch, keng.logits, seng.logits, by_rid)
 
     peng, pinfo = serve_run(torch, cfg, params, device, prompts, "plain", script=script)
@@ -1446,15 +1489,14 @@ def serve_phase(torch, device) -> dict:
          tokens_per_s=gen_tokens / kinfo["wall_s"],
          decode_tokens_per_s=gen_tokens / (sum(kinfo["decode_ms"]) / 1e3),
          launches=kinfo["launches"], prefix_reuse_second_wave=sum(reused[SERVE_PROMPTS:]),
-         paged_calls_checked=shadow["calls"], paged_max_abs_err=float(shadow["max_err"]),
+         paged_calls_checked=shadow_calls, paged_max_abs_err=shadow_err,
          rerun_max_abs_diff=rerun_diff, tol=SERVE_TOL,
          plain_vs_contiguous_max_abs_diff=diff_plain_oracle, max_abs_logit=max_logit,
          kernel_vs_plain_max_abs_diff=diff_plain, kernel_vs_contiguous_max_abs_diff=diff_oracle,
          kernel_vs_contiguous_argmax_agree=f"{agree}/{n * SERVE_MAX_NEW}",
          one_ulp_sensitivity=nudge,
          peak_memory_bytes=peak, mgr_stats=keng.mgr.stats, profile=prof)
-    return dict(launches=launches, attn_args=capture["attn_args"],
-                max_abs_err=float(shadow["max_err"]))
+    return dict(launches=launches, attn_args=capture["attn_args"], max_abs_err=shadow_err)
 
 
 def granite3_serve_phase(torch, device) -> dict:
@@ -1484,15 +1526,9 @@ def granite3_serve_phase(torch, device) -> dict:
     if len(keng.finished) != len(prompts) or any(
             len(r.tokens) != GRANITE3_MAX_NEW for r in keng.finished):
         raise AssertionError("granite3 serve: not every request finished with its tokens")
-    shadow = {"max_err": torch.zeros((), device=device),
-              "excess": torch.full((), -float("inf"), device=device), "calls": 0}
     script = {r.rid: r.tokens for r in keng.finished}
-    serve_run(torch, cfg, params, device, prompts, None, script=script, shadow=shadow,
-              max_new=GRANITE3_MAX_NEW)
-    if shadow["calls"] != launches or float(shadow["excess"]) > 0:
-        raise AssertionError(f"granite3 serve: a kernel call left the tolerance of the plain "
-                             f"version (largest error {float(shadow['max_err'])}, "
-                             f"{shadow['calls']} calls)")
+    _, shadow_err, shadow_calls = shadowed_run(torch, cfg, params, device, prompts, script,
+                                               launches, "granite3 serve", GRANITE3_MAX_NEW)
     logits = torch.stack([torch.stack(v) for v in keng.logits.values()])
     if not bool(torch.isfinite(logits.float()).all()) or logits.shape[-1] != cfg.vocab_size:
         raise AssertionError(f"granite3 serve: logits of shape {tuple(logits.shape)}, "
@@ -1505,10 +1541,10 @@ def granite3_serve_phase(torch, device) -> dict:
          decode_ms_per_step_median=statistics.median(kinfo["decode_ms"]),
          wall_s=kinfo["wall_s"], generated_tokens=gen_tokens,
          decode_tokens_per_s=gen_tokens / (sum(kinfo["decode_ms"]) / 1e3),
-         launches=kinfo["launches"], paged_calls_checked=shadow["calls"],
-         paged_max_abs_err=float(shadow["max_err"]), peak_memory_bytes=peak,
+         launches=kinfo["launches"], paged_calls_checked=shadow_calls,
+         paged_max_abs_err=shadow_err, peak_memory_bytes=peak,
          mgr_stats=keng.mgr.stats)
-    return dict(launches=launches, max_abs_err=float(shadow["max_err"]))
+    return dict(launches=launches, max_abs_err=shadow_err)
 
 
 SERVE_FIXTURES = ("serve_granite8b_smoke.npz", "serve_granite3_smoke.npz")
@@ -2239,21 +2275,29 @@ def checked_scan(torch, label: str):
 
 
 def published_ssm_init(torch, params, gen):
-    """``params`` with every layer's ``a_log`` and ``dt_bias`` drawn as
+    """``params`` with ``a_log`` and ``dt_bias`` of every layer of every
+    SSM block (each group, each block with an SSM mixer, in order) drawn as
     Mamba2 draws them (arXiv 2405.21060; the reference ``Mamba2`` module):
     A uniform in [1, 16], ``a_log = log A``; dt log-uniform in [1e-3, 1e-1]
     (floor 1e-4), ``dt_bias`` its inverse softplus.  The port's init, like
     JAX's, sets ``a_log`` to 1 and ``dt_bias`` to 0, which makes every
-    chunk decay of a 256-token chunk 0 in float32."""
-    mixer = params["dec"]["g0"]["blk0"]["mixer"]
-    shape, dev = mixer["a_log"].shape, mixer["a_log"].device
-    a = 1.0 + 15.0 * torch.rand(shape, generator=gen)
+    chunk decay of a 256-token chunk 0 in float32.  The other leaves are
+    shared with ``params``."""
     lo, hi = torch.log(torch.tensor(1e-3)), torch.log(torch.tensor(1e-1))
-    dt = torch.exp(lo + (hi - lo) * torch.rand(shape, generator=gen)).clamp(min=1e-4)
-    mixer = dict(mixer, a_log=torch.log(a).to(dev),
-                 dt_bias=(dt + torch.log(-torch.expm1(-dt))).to(dev))
-    blk = dict(params["dec"]["g0"]["blk0"], mixer=mixer)
-    return dict(params, dec=dict(params["dec"], g0=dict(params["dec"]["g0"], blk0=blk)))
+    dec = {}
+    for g, blocks in params["dec"].items():
+        dec[g] = dict(blocks)
+        for name, blk in blocks.items():
+            mixer = blk["mixer"]
+            if "a_log" not in mixer:
+                continue
+            shape, dev = mixer["a_log"].shape, mixer["a_log"].device
+            a = 1.0 + 15.0 * torch.rand(shape, generator=gen)
+            dt = torch.exp(lo + (hi - lo) * torch.rand(shape, generator=gen)).clamp(min=1e-4)
+            dec[g][name] = dict(blk, mixer=dict(
+                mixer, a_log=torch.log(a).to(dev),
+                dt_bias=(dt + torch.log(-torch.expm1(-dt))).to(dev)))
+    return dict(params, dec=dec)
 
 
 def ssm_phase(torch, device) -> dict:
@@ -2436,8 +2480,6 @@ def scan_kernel_phase(torch, device, served, cycles_per_ms) -> dict:
     uniform in (0, 1) from a non-zero init at the served shape, and a
     ragged shape of 128 long-memory chunks, (d)
     ``benchmarks/kernels_bench.py``'s geometry."""
-    from repro_torch.kernels import ops, ref
-
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
@@ -2448,29 +2490,32 @@ def scan_kernel_phase(torch, device, served, cycles_per_ms) -> dict:
         "random_ragged_long_memory_init": scan_random(torch, gen, 3, 128, 5, 7, 9, 0.95, 1.0, True),
         "kernels_bench_b2_c16": scan_random(torch, gen, 2, 16, 32, 64, 128, 0.0, 1.0, False),
     }
-    res = {}
-    for label, args in cases.items():
-        got = ops.ssd_scan(*args)
-        torch.cuda.synchronize()
-        want = ref.ssd_scan_ref(*args)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"ssd_scan {label}: differs from the plain version")
+    return {label: scan_case(torch, label, args, cycles_per_ms, flush)
+            for label, args in cases.items()}
 
-        def fresh():
-            flush.zero_()
-            return args
 
-        nbytes, ops_n, info = scan_work(*args)
-        b_ms, b_by = bound(nbytes, ops_n)
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        res[label] = dict(info, zero_decay_share=float((args[1] == 0).float().mean()),
-                          max_abs_err=err,
-                          ms=time_ms(torch, ops.ssd_scan, fresh, cycles_per_ms),
-                          plain_ms=time_ms(torch, ref.ssd_scan_ref, fresh, cycles_per_ms),
-                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops_n,
-                          library_ms=None)
-        del got, want
-    return res
+def scan_case(torch, label: str, args, cycles_per_ms, flush) -> dict:
+    """``ssd_scan`` on ``args`` bitwise against its plain version, both
+    timed with ``flush`` zeroed before each run, and bound."""
+    from repro_torch.kernels import ops, ref
+
+    got = ops.ssd_scan(*args)
+    torch.cuda.synchronize()
+    want = ref.ssd_scan_ref(*args)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"ssd_scan {label}: differs from the plain version")
+
+    def fresh():
+        flush.zero_()
+        return args
+
+    nbytes, ops_n, info = scan_work(*args)
+    b_ms, b_by = bound(nbytes, ops_n)
+    return dict(info, zero_decay_share=float((args[1] == 0).float().mean()),
+                max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
+                ms=time_ms(torch, ops.ssd_scan, fresh, cycles_per_ms),
+                plain_ms=time_ms(torch, ref.ssd_scan_ref, fresh, cycles_per_ms),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops_n, library_ms=None)
 
 
 TRAIN_ARCH = "mamba2_370m"
@@ -2774,35 +2819,41 @@ def train_dense_phase(torch, device) -> dict:
 
 
 def train_replay_phase(torch, device) -> None:
-    """The committed JAX training fixtures (Granite-8B, Mamba2 and
-    DeepSeek-V2-Lite smoke configs, float32 and bfloat16; the last with
-    MLA, MoE and its load-balance loss in the gradient) through the port's
-    train step with the kernels, held to the CPU tests' ``TRAIN_TOL``; the
-    Mamba2 replays must launch ``ssd_scan_bwd`` once a layer for each
-    gradient they take."""
+    """The committed JAX training fixtures (Granite-8B, Mamba2,
+    DeepSeek-V2-Lite and Jamba smoke configs, float32 and bfloat16;
+    DeepSeek's with MLA, MoE and its load-balance loss in the gradient,
+    Jamba's with SSM, MoE and attention blocks in one group) through the
+    port's train step with the kernels, held to the CPU tests' tolerances
+    (``train_tol``); a stack with SSM blocks must launch ``ssd_scan`` twice
+    (remat) and ``ssd_scan_bwd`` once an SSM layer for each gradient it
+    takes."""
     from repro_torch.kernels import ops
     from repro_torch.models.replay import load_model_replay
+    from repro_torch.models.stack import plan_groups
     from repro_torch.train.replay import (
-        TRAIN_TOL,
         compare_train_case,
         replay_train_case,
         train_case_ok,
+        train_tol,
     )
 
-    for arch in ("granite_8b", "mamba2_370m", "deepseek_v2_lite_16b"):
+    for arch in ("granite_8b", "mamba2_370m", "deepseek_v2_lite_16b", "jamba_1_5_large_398b"):
         path = ROOT / "src" / "repro_torch" / "testdata" / f"train_{arch}_smoke.npz"
         cfg, tree, cases = load_model_replay(path)
+        ssm_layers = sum(g.steps for g in plan_groups(cfg)[1] for bd in g.blocks
+                         if bd.mixer == "ssm")
         for dtype, case in sorted(cases.items()):
             ops.reset_launches()
             res = compare_train_case(case, replay_train_case(cfg, tree, dtype, case, device))
             torch.cuda.synchronize()
             res["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
             grads = 1 + len(case["loss"])     # step 0's gradient, then every step
-            want = ({} if cfg.family != "ssm" else
-                    {"ssd_scan": 2 * cfg.num_layers * grads, "ssd_scan_bwd": cfg.num_layers * grads})
-            if not train_case_ok(res, TRAIN_TOL[dtype]) or res["launches"] != want:
+            want = ({} if not ssm_layers else
+                    {"ssd_scan": 2 * ssm_layers * grads, "ssd_scan_bwd": ssm_layers * grads})
+            tol = train_tol(cfg.family, dtype)
+            if not train_case_ok(res, tol) or res["launches"] != want:
                 raise AssertionError(f"train replay {arch} {dtype}: {res}, launches expected {want}")
-            emit("train_replay", arch=arch, case=dtype, tol=TRAIN_TOL[dtype], **res)
+            emit("train_replay", arch=arch, case=dtype, tol=tol, **res)
 
 
 MOE_ARCH = "deepseek_v2_lite_16b"
@@ -2817,19 +2868,22 @@ MOE_BATCH, MOE_PROMPT_LEN, MOE_DECODE_STEPS = 4, 512, 32
 MOE_DISPATCH_TOL = 8 * 2.0 ** -8
 
 
-def moe_generate(torch, cfg, params, prefill_caches, first_tok, prompt_len: int) -> dict:
-    """``MOE_DECODE_STEPS`` greedy ``decode_step``s from ``first_tok`` on the
-    prefill caches zero-padded to the prompt plus the steps (new tensors:
-    the prefill caches stay as they are), each step timed on the host clock
-    between synchronisations.  ``last``: the last step's inputs."""
+def greedy_generate(torch, cfg, params, prefill_caches, first_tok, prompt_len: int,
+                    steps: int = MOE_DECODE_STEPS) -> dict:
+    """``steps`` greedy ``decode_step``s from ``first_tok`` at position
+    ``prompt_len`` on the prefill caches, their K/V or latent rows
+    zero-padded to the prompt plus the steps (new tensors: the prefill
+    caches stay as they are; SSM states come back new from every step),
+    each step timed on the host clock between synchronisations.  ``last``:
+    the last step's inputs."""
     from repro_torch.models.model import decode_step
     from repro_torch.models.replay import pad_caches
 
-    caches = pad_caches(prefill_caches, prompt_len + MOE_DECODE_STEPS)
+    caches = pad_caches(prefill_caches, prompt_len + steps)
     tok = first_tok
     pos = torch.full((tok.shape[0],), prompt_len, dtype=torch.int32, device=tok.device)
     gen, step_logits, decode_ms = [tok], [], []
-    for _ in range(MOE_DECODE_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         last = (tok, pos, caches)
@@ -2890,6 +2944,41 @@ def moe_reference(torch, p, cfg, x):
     return y, int(keep.sum())
 
 
+def recorded_dispatch(torch, params, cfg, batch, logits, moe_layers: int, label: str):
+    """One more prefill of ``batch`` with ``moe_forward`` recorded
+    (``recording_moe``): it must give ``logits`` and call ``moe_layers``
+    MoE layers.  Returns (the pairs dropped at capacity per MoE layer, the
+    first MoE layer's ``moe_forward`` against ``moe_reference``), failing
+    unless every pair is kept or dropped and the error is within
+    ``MOE_DISPATCH_TOL`` of the reference's largest value."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import prefill
+
+    record = {"dropped": []}
+    plain = moe_mod.moe_forward
+    moe_mod.moe_forward = recording_moe(torch, record)
+    try:
+        rlogits, _ = prefill(params, cfg, batch)
+    finally:
+        moe_mod.moe_forward = plain
+    if not torch.equal(rlogits, logits) or len(record["dropped"]) != moe_layers:
+        raise AssertionError(f"{label}: the recorded prefill ran {len(record['dropped'])} MoE "
+                             "layers or gave other logits")
+    p1, x1, y1 = record.pop("first")
+    want, kept = moe_reference(torch, p1, cfg, x1)
+    scale = float(want.abs().max())
+    err = float((y1.float() - want).abs().max())
+    pairs = batch["tokens"].numel() * cfg.moe_top_k
+    dispatch = dict(layer=1, max_abs_err=err, max_abs_ref=scale, rel_err=err / scale,
+                    tol_rel=MOE_DISPATCH_TOL,
+                    mean_abs_err=float((y1.float() - want).abs().mean()),
+                    pairs=pairs, kept=kept, dropped=record["dropped"][0])
+    if kept + record["dropped"][0] != pairs or not err <= MOE_DISPATCH_TOL * scale:
+        raise AssertionError(f"{label}: layer 1's moe_forward against the direct reference: "
+                             f"{dispatch}")
+    return record["dropped"], dispatch
+
+
 def moe_phase(torch, device) -> dict:
     """The fifth main path: DeepSeek-V2-Lite-16B at full width (27 layers:
     MLA, a dense first FFN, 26 MoE layers of 64 routed experts top-6 and 2
@@ -2930,9 +3019,9 @@ def moe_phase(torch, device) -> dict:
     torch.cuda.synchronize()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-    run = moe_generate(torch, cfg, params, caches, first, MOE_PROMPT_LEN)
+    run = greedy_generate(torch, cfg, params, caches, first, MOE_PROMPT_LEN)
     peak = torch.cuda.max_memory_allocated()
-    again = moe_generate(torch, cfg, params, caches, first, MOE_PROMPT_LEN)
+    again = greedy_generate(torch, cfg, params, caches, first, MOE_PROMPT_LEN)
     if not bool(torch.isfinite(logits).all() & torch.isfinite(run["logits"]).all()):
         raise AssertionError("moe: logits are not finite")
     if not torch.equal(run["tokens"], again["tokens"]):
@@ -2942,28 +3031,8 @@ def moe_phase(torch, device) -> dict:
     if got != spec:
         raise AssertionError(f"moe: latent caches {got}, expected {spec}")
 
-    record = {"dropped": []}
-    plain = moe_mod.moe_forward
-    moe_mod.moe_forward = recording_moe(torch, record)
-    try:
-        rlogits, _ = prefill(params, cfg, batch)
-    finally:
-        moe_mod.moe_forward = plain
-    if not torch.equal(rlogits, logits) or len(record["dropped"]) != cfg.num_layers - 1:
-        raise AssertionError(f"moe: the recorded prefill ran {len(record['dropped'])} MoE "
-                             "layers or gave other logits")
-    p1, x1, y1 = record.pop("first")
-    want, kept = moe_reference(torch, p1, cfg, x1)
-    scale = float(want.abs().max())
-    err = float((y1.float() - want).abs().max())
-    pairs = MOE_BATCH * MOE_PROMPT_LEN * cfg.moe_top_k
-    dispatch = dict(layer=1, max_abs_err=err, max_abs_ref=scale, rel_err=err / scale,
-                    tol_rel=MOE_DISPATCH_TOL,
-                    mean_abs_err=float((y1.float() - want).abs().mean()),
-                    pairs=pairs, kept=kept, dropped=record["dropped"][0])
-    if kept + record["dropped"][0] != pairs or not err <= MOE_DISPATCH_TOL * scale:
-        raise AssertionError(f"moe: layer 1's moe_forward against the direct reference: {dispatch}")
-    del p1, x1, y1, want
+    dropped, dispatch = recorded_dispatch(torch, params, cfg, batch, logits, cfg.num_layers - 1,
+                                          "moe")
 
     # decode step 1 against a prefill of the prompt and its first token, as
     # configured (the prefill drops pairs at capacity, decode at 4 tokens
@@ -2994,7 +3063,7 @@ def moe_phase(torch, device) -> dict:
          prefill_tokens_per_s=MOE_BATCH * MOE_PROMPT_LEN / (prefill_ms / 1e3),
          decode_ms_per_step=run["decode_ms"], decode_ms_per_step_median=decode_med,
          decode_tokens_per_s=MOE_BATCH / (decode_med / 1e3),
-         decode_repeat_tokens_equal=True, dropped_by_moe_layer=record["dropped"],
+         decode_repeat_tokens_equal=True, dropped_by_moe_layer=dropped,
          dispatch_check=dispatch, decode_vs_prefill=gap,
          max_abs_logit=float(run["logits"].abs().max()), peak_memory_bytes=peak,
          profile_decode_step=prof_decode, profile_prefill=prof_prefill,
@@ -3002,27 +3071,336 @@ def moe_phase(torch, device) -> dict:
     return dict(dispatch=dispatch)
 
 
-def moe_replay_phase(torch, device) -> None:
-    """The committed JAX MoE fixtures (DeepSeek-V2-Lite's and Qwen3-MoE's
-    smoke configs, float32 and bfloat16) through the port on the card,
-    teacher-forced, held to the CPU tests' ``MOE_TOL``."""
-    from repro_torch.models.replay import (
-        MOE_TOL,
-        compare_moe_case,
-        load_model_replay,
-        moe_case_ok,
-        replay_moe_case,
-    )
+# ---------------------------------------------------------------------------
+# Phases 23-26: the hybrid family (one Jamba-1.5-Large period) and the VLM
+# patch prefix (InternVL2-2B).
+# ---------------------------------------------------------------------------
 
-    for arch in ("deepseek_v2_lite_16b", "qwen3_moe_235b_a22b"):
-        cfg, tree, cases = load_model_replay(
-            ROOT / "src" / "repro_torch" / "testdata" / f"moe_{arch}_smoke.npz")
+HYBRID_ARCH, HYBRID_LAYERS = "jamba_1_5_large_398b", 8    # one period (attn_period 8)
+HYBRID_PARAMS = 45_144_659_968     # JAX's param_count of the config cut to one period
+HYBRID_DISTINCT = 16_153_630_720   # held: the four MoE layers share one expert stack
+HYBRID_EXPERTS = ("w_gate", "w_up", "w_down")
+# Traffic: the ssm cell's (4 prompts of 2,048 seeded tokens, 8 chunks of
+# 256), then 32 greedy decode steps.
+HYBRID_BATCH, HYBRID_PROMPT_LEN, HYBRID_DECODE_STEPS = 4, 2048, 32
+HYBRID_GAP_LEN = 1024   # decode against prefill at the longest full-attention prefill
+VLM_ARCH = "internvl2_2b"
+VLM_BATCH, VLM_TEXT_LEN, VLM_DECODE_STEPS = 4, 512, 32
+
+
+def tied_expert_init(torch, cfg, seed: int, device):
+    """Random weights of ``cfg`` (``init_params``' law, ``torch.Generator``
+    seed ``seed``) with one expert stack for all MoE blocks: the first MoE
+    block's ``w_gate``/``w_up``/``w_down`` are drawn and the other MoE
+    blocks' are left out of the drawn tree, then alias them.  Every other
+    leaf, the routers included, is drawn per block.  Returns (params, the
+    MoE block names)."""
+    from repro_torch.models.model import model_param_defs
+    from repro_torch.models.params import init_params
+
+    defs = model_param_defs(cfg)
+    blocks = defs["dec"]["g0"]
+    moe = [b for b, d in blocks.items() if "router" in d.get("ffn", {})]
+    for b in moe[1:]:
+        blocks[b]["ffn"] = {k: v for k, v in blocks[b]["ffn"].items() if k not in HYBRID_EXPERTS}
+    params = init_params(defs, torch.Generator().manual_seed(seed), device)
+    first = params["dec"]["g0"][moe[0]]["ffn"]
+    for b in moe[1:]:
+        params["dec"]["g0"][b]["ffn"].update({k: first[k] for k in HYBRID_EXPERTS})
+    return params, moe
+
+
+def distinct_params(params) -> int:
+    """Elements held, each tensor counted once however often it is shared."""
+    from repro_torch.utils.trees import tree_leaves
+
+    seen = {t.data_ptr(): t.numel() for t in tree_leaves(params)}
+    return sum(seen.values())
+
+
+def hybrid_phase(torch, device, cycles_per_ms) -> dict:
+    """The sixth main path: one whole Jamba-1.5-Large period at its
+    published widths (8 layers: blocks 0-7 are Mamba2 mixers but block 4,
+    GQA attention; dense MLPs at even blocks, MoE of 16 experts top-2 at
+    odd ones), random bfloat16 weights from seed 0 with the four MoE layers
+    sharing one expert stack (``tied_expert_init``) and Mamba2's published
+    ``a_log``/``dt_bias`` draws in all 7 SSM layers.  4 prompts of 2,048
+    seeded tokens prefilled at batch 4 (7 ``ssd_scan`` launches), then 32
+    greedy ``decode_step``s on the mixed contiguous caches; again (the same
+    tokens, or it fails).  A recorded prefill gives the pairs dropped per
+    MoE layer and holds layer 1's ``moe_forward`` against
+    ``moe_reference``; a checked prefill holds every ``ssd_scan`` call
+    bitwise against its plain version.  Times, profiles, peak memory, a
+    decode step against a prefill of the same 1,024 tokens (printed), and
+    the layer-0 scan timed as an ``ssd_scan`` kernel case."""
+    import numpy as np
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import decode_step, model_param_defs, prefill
+    from repro_torch.models.params import param_count
+
+    cfg = dataclasses.replace(get_arch(HYBRID_ARCH), num_layers=HYBRID_LAYERS)
+    n_params = param_count(model_param_defs(cfg))
+    if n_params != HYBRID_PARAMS:
+        raise AssertionError(f"hybrid: {n_params} parameters, JAX counts {HYBRID_PARAMS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, moe_blocks = tied_expert_init(torch, cfg, 0, device)
+    params = published_ssm_init(torch, params, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    held = distinct_params(params)
+    if held != HYBRID_DISTINCT:
+        raise AssertionError(f"hybrid: {held} distinct parameters, expected {HYBRID_DISTINCT}")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT_LEN))
+                              .astype(np.int32)).to(device)
+    batch = {"tokens": tokens}
+
+    prefill(params, cfg, batch)                     # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    run = greedy_generate(torch, cfg, params, caches, first, HYBRID_PROMPT_LEN,
+                          HYBRID_DECODE_STEPS)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ssm_layers = HYBRID_LAYERS - 1
+    if launches["ssd_scan"] != ssm_layers or sum(launches.values()) != ssm_layers:
+        raise AssertionError(f"hybrid: expected {ssm_layers} ssd_scan launches in one prefill "
+                             f"and {HYBRID_DECODE_STEPS} decode steps, got {launches}")
+    again = greedy_generate(torch, cfg, params, caches, first, HYBRID_PROMPT_LEN,
+                            HYBRID_DECODE_STEPS)
+    if not bool(torch.isfinite(logits).all() & torch.isfinite(run["logits"]).all()):
+        raise AssertionError("hybrid: logits are not finite")
+    if not torch.equal(run["tokens"], again["tokens"]):
+        raise AssertionError("hybrid: a second decode run gave other tokens")
+    tree = {blk: sorted(c) for blk, c in caches[0].items()}
+    attn_blk = f"blk{cfg.attn_period // 2}"
+    want_tree = {f"blk{i}": ["conv", "ssd"] for i in range(HYBRID_LAYERS)}
+    want_tree[attn_blk] = ["k", "v"]
+    if tree != want_tree or caches[0][attn_blk]["k"].shape[2] != HYBRID_PROMPT_LEN:
+        raise AssertionError(f"hybrid: cache tree {tree}, expected {want_tree}")
+    del again
+
+    # every scan call of one prefill against the plain version, bitwise
+    scan, shadow = checked_scan(torch, "hybrid")
+    slogits, _ = prefill(params, cfg, batch, ssd_scan=scan)
+    if shadow["calls"] != ssm_layers or not torch.equal(slogits, logits):
+        raise AssertionError(f"hybrid: the checked prefill made {shadow['calls']} scan calls "
+                             "or gave other logits")
+    zero_share = shadow["zero"]
+    del slogits
+
+    dropped, dispatch = recorded_dispatch(torch, params, cfg, batch, logits, len(moe_blocks),
+                                          "hybrid")
+
+    # a decode step against a prefill of the same tokens: the attention's
+    # blocked (flash) path takes only whole blocks past 1,024 positions, so
+    # on the prompt's first 1,023 tokens, fed token 1,024, against a
+    # prefill of its first 1,024 (both on the full-attention path)
+    short = HYBRID_GAP_LEN - 1
+    _, scaches = prefill(params, cfg, {"tokens": tokens[:, :short]})
+    step1 = greedy_generate(torch, cfg, params, scaches, tokens[:, short:short + 1], short,
+                            1)["logits"][0]
+    cont = prefill(params, cfg, {"tokens": tokens[:, :short + 1]})[0][:, -1]
+    gap = dict(prompt_len=short, step=1, max_abs_diff=float((step1 - cont).abs().max()),
+               argmax_equal=f"{int((step1.argmax(-1) == cont.argmax(-1)).sum())}/{HYBRID_BATCH}")
+    del cont, scaches
+
+    tok, pos, dcaches = run["last"]
+    decode_med = statistics.median(run["decode_ms"])
+    prof_decode = profile_calls(torch, lambda: decode_step(params, cfg, tok, pos, dcaches), 3,
+                                decode_med, "gemm")
+    prof_prefill = profile_calls(torch, lambda: prefill(params, cfg, batch), 1, prefill_ms,
+                                 "ssd_scan")
+    del dcaches, caches
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    layer0 = scan_case(torch, "jamba_prefill_layer0", shadow.pop("args"), cycles_per_ms, flush)
+    del flush
+
+    emit("hybrid", arch=cfg.name, layers=HYBRID_LAYERS,
+         reduced=[f"num_layers {get_arch(HYBRID_ARCH).num_layers} -> {HYBRID_LAYERS} "
+                  "(one period)", f"expert stacks: the {len(moe_blocks)} MoE layers share one"],
+         params=n_params, params_held=held, init_s=init_s, init_peak_memory_bytes=init_peak,
+         batch=HYBRID_BATCH, prompt_len=HYBRID_PROMPT_LEN, chunk=cfg.ssm_chunk,
+         ssm_heads=cfg.ssm_nheads, decode_steps=HYBRID_DECODE_STEPS, launches=launches,
+         experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+         capacity_prefill=moe_mod._capacity(cfg, HYBRID_PROMPT_LEN),
+         capacity_decode=moe_mod._capacity(cfg, HYBRID_BATCH),
+         prefill_ms=prefill_ms,
+         prefill_tokens_per_s=HYBRID_BATCH * HYBRID_PROMPT_LEN / (prefill_ms / 1e3),
+         decode_ms_per_step=run["decode_ms"], decode_ms_per_step_median=decode_med,
+         decode_tokens_per_s=HYBRID_BATCH / (decode_med / 1e3),
+         decode_repeat_tokens_equal=True, cache_tree=tree,
+         scan_calls_checked=ssm_layers, scan_bitwise_equal_to_plain=True,
+         zero_decay_share_by_layer=zero_share,
+         dropped_by_moe_layer=dropped, dispatch_check=dispatch, decode_vs_prefill=gap, max_abs_logit=float(run["logits"].abs().max()),
+         peak_memory_bytes=peak, profile_decode_step=prof_decode,
+         profile_prefill=prof_prefill, tokens_row0=run["tokens"][0].tolist())
+    emit("kernels", kernel="ssd_scan", spin_cycles_per_ms=cycles_per_ms,
+         jamba_prefill_layer0=layer0)
+    return dict(launches=launches["ssd_scan"], scan_case=layer0)
+
+
+VLM_PARAMS = 1_889_146_880   # JAX's param_count of the config
+
+
+def vlm_phase(torch, device, cycles_per_ms) -> dict:
+    """The seventh main path: InternVL2-2B at full width (24 layers, random
+    bfloat16 weights from seed 0) behind its patch prefix: 4 requests of
+    256 seeded bfloat16 patch embeddings and 512 seeded tokens prefilled at
+    batch 4 (768 positions), then 32 greedy ``decode_step``s from position
+    768; again (the same tokens, or it fails).  Then the same 4 text
+    prompts through ``ServeEngine`` with ``paged_attention`` (counted: once
+    a layer and decode step), again with every kernel call held against
+    the plain version (``paged_verdict``), and with the plain version
+    against the contiguous-cache oracle within ``SERVE_TOL``, as the
+    ``serve`` phase does; the kernel on the run's layer-0 inputs of decode
+    step ``CAPTURE_STEP`` timed as a ``paged_attention`` case."""
+    import numpy as np
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_step, init_model, model_param_defs, prefill
+    from repro_torch.models.params import param_count
+
+    cfg = get_arch(VLM_ARCH)
+    n_params = param_count(model_param_defs(cfg))
+    if n_params != VLM_PARAMS:
+        raise AssertionError(f"vlm: {n_params} parameters, JAX counts {VLM_PARAMS}")
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator().manual_seed(0), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (VLM_BATCH, VLM_TEXT_LEN))
+                              .astype(np.int32)).to(device)
+    patches = torch.from_numpy(rng.standard_normal(
+        (VLM_BATCH, cfg.frontend_seq, cfg.d_model)).astype(np.float32)).to(device, torch.bfloat16)
+    batch = {"tokens": tokens, "patches": patches}
+    length = cfg.frontend_seq + VLM_TEXT_LEN
+
+    prefill(params, cfg, batch)                     # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    run = greedy_generate(torch, cfg, params, caches, first, length, VLM_DECODE_STEPS)
+    contiguous_launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    again = greedy_generate(torch, cfg, params, caches, first, length, VLM_DECODE_STEPS)
+    kv_len = caches[0]["blk0"]["k"].shape[2]
+    if kv_len != length or sum(contiguous_launches.values()):
+        raise AssertionError(f"vlm: K/V of {kv_len} positions after the prefill, expected "
+                             f"{length}; launches {contiguous_launches}")
+    if not bool(torch.isfinite(logits).all() & torch.isfinite(run["logits"]).all()):
+        raise AssertionError("vlm: logits are not finite")
+    if not torch.equal(run["tokens"], again["tokens"]):
+        raise AssertionError("vlm: a second decode run gave other tokens")
+    tok, pos, dcaches = run["last"]
+    decode_med = statistics.median(run["decode_ms"])
+    prof_decode = profile_calls(torch, lambda: decode_step(params, cfg, tok, pos, dcaches), 3,
+                                decode_med, "gemm")
+    prof_prefill = profile_calls(torch, lambda: prefill(params, cfg, batch), 1, prefill_ms,
+                                 "gemm")
+    del caches, dcaches, again
+
+    # the text prompts through the paged engine, as the serve phase runs Granite
+    prompts = [row.tolist() for row in tokens.cpu()]
+    capture: dict = {}
+    keng, kinfo = serve_run(torch, cfg, params, device, prompts, None, capture=capture)
+    steps = len(kinfo["decode_ms"])
+    launches = kinfo["launches"]["paged_attention"]
+    if launches != cfg.num_layers * steps or steps == 0 or any(
+            len(r.tokens) != SERVE_MAX_NEW for r in keng.finished):
+        raise AssertionError(f"vlm paged: paged_attention launched {launches} times in "
+                             f"{steps} decode steps of {cfg.num_layers} layers")
+    by_rid = {r.rid: r for r in keng.finished}
+    script = {r: by_rid[r].tokens for r in by_rid}
+    _, shadow_err, shadow_calls = shadowed_run(torch, cfg, params, device, prompts, script,
+                                               launches, "vlm paged")
+    peng, _ = serve_run(torch, cfg, params, device, prompts, "plain", script=script)
+    rids = sorted(by_rid)
+    oracle = contiguous_oracle(torch, cfg, params, device, prompts,
+                               [script[r] for r in rids]).float()
+
+    def by_prompt(r):
+        return oracle[rids.index(r)]
+
+    diff_plain_oracle = logit_diff(torch, peng.logits, by_prompt, by_rid)
+    if not diff_plain_oracle <= SERVE_TOL:
+        raise AssertionError(f"vlm paged: the plain paged run differs from the contiguous oracle "
+                             f"by {diff_plain_oracle} > {SERVE_TOL}")
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    case = paged_case(torch, capture["attn_args"], cycles_per_ms, flush, True)
+    emit("vlm", arch=cfg.name, params=n_params, init_s=init_s, batch=VLM_BATCH,
+         patches=cfg.frontend_seq, text_len=VLM_TEXT_LEN, prefill_positions=length,
+         decode_steps=VLM_DECODE_STEPS, prefill_ms=prefill_ms,
+         prefill_tokens_per_s=VLM_BATCH * length / (prefill_ms / 1e3),
+         decode_ms_per_step=run["decode_ms"], decode_ms_per_step_median=decode_med,
+         decode_tokens_per_s=VLM_BATCH / (decode_med / 1e3), decode_repeat_tokens_equal=True,
+         kv_len_after_prefill=kv_len, max_abs_logit=float(run["logits"].abs().max()),
+         peak_memory_bytes=peak, profile_decode_step=prof_decode, profile_prefill=prof_prefill,
+         paged=dict(requests=len(prompts), max_new=SERVE_MAX_NEW, page_size=SERVE_PAGE,
+                    decode_steps=steps, launches=kinfo["launches"],
+                    prefill_ms=kinfo["prefill_ms"],
+                    decode_ms_per_step_median=statistics.median(kinfo["decode_ms"]),
+                    paged_calls_checked=shadow_calls, paged_max_abs_err=shadow_err,
+                    tol=SERVE_TOL,
+                    plain_vs_contiguous_max_abs_diff=diff_plain_oracle,
+                    kernel_vs_plain_max_abs_diff=logit_diff(torch, keng.logits, peng.logits,
+                                                            by_rid),
+                    mgr_stats=keng.mgr.stats),
+         tokens_row0=run["tokens"][0].tolist())
+    emit("kernels", kernel=PAGED, spin_cycles_per_ms=cycles_per_ms,
+         internvl2_step20_layer0=case)
+    return dict(launches=launches, max_abs_err=max(shadow_err, case["max_abs_err"]))
+
+
+def model_replay_phase(torch, device, phase: str, files: dict) -> None:
+    """Committed JAX model fixtures (``files``: name in
+    ``src/repro_torch/testdata`` -> its tolerances, ``models.replay``'s
+    ``MOE_TOL``, ``HYBRID_TOL`` or ``VLM_TOL``), float32 and bfloat16,
+    through the port on the card with the kernels, teacher-forced, held to
+    the CPU tests' tolerances; a stack with SSM blocks must launch
+    ``ssd_scan`` once an SSM layer of the prefill."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.replay import (
+        compare_model_case,
+        load_model_replay,
+        model_case_ok,
+        replay_model_case,
+    )
+    from repro_torch.models.stack import plan_groups
+
+    for name, tols in files.items():
+        cfg, tree, cases = load_model_replay(ROOT / "src" / "repro_torch" / "testdata" / name)
+        ssm_layers = sum(g.steps for g in plan_groups(cfg)[1] for bd in g.blocks
+                         if bd.mixer == "ssm")
         for dtype, case in sorted(cases.items()):
-            res = compare_moe_case(case, replay_moe_case(cfg, tree, dtype, case, device),
-                                   MOE_TOL[dtype])
-            if not moe_case_ok(res, MOE_TOL[dtype]):
-                raise AssertionError(f"moe replay {arch} {dtype}: {res}")
-            emit("moe_replay", arch=arch, case=dtype, tol=MOE_TOL[dtype], **res)
+            ops.reset_launches()
+            res = compare_model_case(case, replay_model_case(cfg, tree, dtype, case, device),
+                                     tols[dtype])
+            torch.cuda.synchronize()
+            res["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+            want = {"ssd_scan": ssm_layers} if ssm_layers else {}
+            if not model_case_ok(res, tols[dtype]) or res["launches"] != want:
+                raise AssertionError(f"{phase} {name} {dtype}: {res}, launches expected {want}")
+            emit(phase, fixture=name, arch=cfg.name, case=dtype, tol=tols[dtype], **res)
 
 
 EXAMPLE_TIMEOUT_S = 300
@@ -3082,6 +3460,7 @@ def main() -> None:
     from repro_torch.core import workload as wl
     from repro_torch.core.simulator import SimConfig
     from repro_torch.kernels import build, ops
+    from repro_torch.models.replay import HYBRID_TOL, MOE_TOL, VLM_TOL
 
     device = torch.device("cuda")
     # float32 products in full float32 (the plain versions are references)
@@ -3201,16 +3580,29 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe_phase(torch, device)
     torch.cuda.empty_cache()
-    moe_replay_phase(torch, device)
+    model_replay_phase(torch, device, "moe_replay", {
+        f"moe_{arch}_smoke.npz": MOE_TOL
+        for arch in ("deepseek_v2_lite_16b", "qwen3_moe_235b_a22b")})
     examples_phase(torch)
     elapsed("moe and examples")
+
+    torch.cuda.empty_cache()
+    hybrid = hybrid_phase(torch, device, cycles_per_ms)
+    torch.cuda.empty_cache()
+    model_replay_phase(torch, device, "hybrid_replay",
+                       {"hybrid_jamba_1_5_large_398b_smoke.npz": HYBRID_TOL})
+    vlm = vlm_phase(torch, device, cycles_per_ms)
+    torch.cuda.empty_cache()
+    model_replay_phase(torch, device, "vlm_replay", {"vlm_internvl2_2b_smoke.npz": VLM_TOL})
+    elapsed("hybrid and vlm")
 
     # Headline case of each FLIC kernel: the first main-path case of the
     # kernels phase.  Launches: the main path's kernel runs of the five
     # engine cells (dense, city, replicate, poisson, trace), each counted
     # from 0.  max_abs_err is 0: every FLIC kernel passed a bitwise
-    # comparison.  paged_attention: the serve run's launches, its headline
-    # the serve step's inputs, its error the largest over all its cases.
+    # comparison.  paged_attention: the Granite serve run's launches and
+    # InternVL2's paged run's, its headline the Granite serve step's inputs,
+    # its error the largest over all its cases and checked calls.
     lines = []
     for name in FLIC_KERNELS:
         head = next(iter(kres[name].values()))
@@ -3225,21 +3617,23 @@ def main() -> None:
     head = pres["serve_step20_layer0"]
     lines.append({
         "name": PAGED, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{PAGED}.cu",
-        "replaces": REPLACES[PAGED], "launches": serve["launches"],
-        "max_abs_err": max([serve["max_abs_err"], granite3["max_abs_err"]]
+        "replaces": REPLACES[PAGED], "launches": serve["launches"] + vlm["launches"],
+        "max_abs_err": max([serve["max_abs_err"], granite3["max_abs_err"], vlm["max_abs_err"]]
                            + [v["max_abs_err"] for v in pres.values()
                               if isinstance(v, dict) and "max_abs_err" in v]),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
     })
     # flic_merge: its entry's run on the dense cell's catch-up; ssd_scan: the
-    # Mamba2 prefill's launches and the train run's (8 steps, remat: the
-    # forward twice a layer); ssd_scan_bwd: the train run's.  Error: the
-    # largest over all cases (ssd_scan_bwd: g_decay's; g_states and g_init
-    # are bitwise).
+    # Mamba2 prefill's launches, the train run's (8 steps, remat: the
+    # forward twice a layer) and the Jamba prefill's; ssd_scan_bwd: the
+    # train run's.  Error: the largest over all cases (ssd_scan_bwd:
+    # g_decay's; g_states and g_init are bitwise).
+    sres["jamba_prefill_layer0"] = hybrid["scan_case"]
     for name, launches, cases in (
             ("flic_merge", merge["launches"], mres),
-            ("ssd_scan", ssm["launches"] + train["launches"]["ssd_scan"], sres),
+            ("ssd_scan", ssm["launches"] + train["launches"]["ssd_scan"] + hybrid["launches"],
+             sres),
             ("ssd_scan_bwd", train["launches"]["ssd_scan_bwd"], bres)):
         head = next(iter(cases.values()))
         lines.append({

@@ -1,7 +1,9 @@
 """Top-level model API: param defs, init, forward, prefill, decode.
 
 Port of ``repro.models.model`` for the stacks the port runs (dense GQA,
-Mamba2 SSM, and the MoE family: GQA or MLA mixers with expert FFNs):
+Mamba2 SSM, the MoE family: GQA or MLA mixers with expert FFNs, the hybrid
+family: Mamba2 and GQA mixers with dense or expert FFNs in one group, and
+the VLM: a dense stack behind a prefix of patch embeddings):
 
   * ``model_param_defs(cfg)``        — ParamDef tree (single source of truth);
   * ``init_model(cfg, generator, device)`` — random weights from a seed, on
@@ -11,15 +13,19 @@ Mamba2 SSM, and the MoE family: GQA or MLA mixers with expert FFNs):
     plus 0.01 x the MoE load-balance loss;
   * ``prefill`` / ``decode_step``    — serving with per-layer caches
     (contiguous K/V for attention, the latent rows for MLA, conv window and
-    SSD state for Mamba2).
+    SSD state for Mamba2; a hybrid group holds both kinds, block by block).
 
 ``ssd_scan`` is the Mamba2 chunk scan: by default ``kernels.ops.ssd_scan``
 (the CUDA kernel on the card), or ``kernels.ref.ssd_scan_ref``, its plain
 version.
 
 Batches: ``{"tokens": (B,S) int32}``, and for the loss ``"labels"`` (B,S)
-and an optional ``"loss_mask"``.  The VLM patch prefix and the encoder are
-later work (ROADMAP.md, Queue 1).
+and an optional ``"loss_mask"``.  A VLM batch adds ``"patches"`` (B,P,d_model),
+precomputed patch embeddings: they are cast to the embedding dtype and put
+before the text embeddings, positions run over all P+S, ``forward`` returns
+P as the text offset (the loss is over the text alone), and decode after
+such a prefill starts at position P+S.  The encoder is later work
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -61,16 +67,25 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None) -> dic
 LOSS_CHUNK = 1024
 
 
+def _decoder_input(params, cfg: ModelConfig, batch: dict):
+    """Embed tokens (+ the patch prefix for a VLM). Returns (x, text_offset)."""
+    x = embed_tokens(params["embed"], batch["tokens"])
+    offset = 0
+    if cfg.family == "vlm" and "patches" in batch:
+        patches = batch["patches"].to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        offset = patches.shape[1]
+    return x, offset
+
+
 def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train",
             ssd_scan: ScanFn = ops.ssd_scan, remat: bool = False, remat_policy: str = "dots"):
     """Returns (hidden, aux_loss, caches, text_offset). Caches only in
     prefill; ``remat`` (train mode) recomputes each layer in the backward
     pass (``stack.apply_group``).  ``aux`` (0-d float32) is the MoE
     load-balance loss summed over the layers, 0 for a stack without
-    experts."""
-    if cfg.family == "vlm" and "patches" in batch:
-        raise NotImplementedError("the VLM patch prefix is not ported yet (ROADMAP.md, Queue 1)")
-    x = embed_tokens(params["embed"], batch["tokens"])
+    experts.  ``text_offset`` is the VLM patch count, else 0."""
+    x, offset = _decoder_input(params, cfg, batch)
     b, s = x.shape[:2]
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     _, dec_groups = plan_groups(cfg)
@@ -84,7 +99,7 @@ def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train",
         if mode == "prefill":
             caches.append(c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, aux, caches if mode == "prefill" else None, 0
+    return x, aux, caches if mode == "prefill" else None, offset
 
 
 def _lm_head_weight(params, cfg: ModelConfig):
@@ -145,9 +160,10 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: torch.Tensor
                 caches: list):
     """One token for every sequence in the batch.
 
-    token: (B,1) int32; pos: (B,) current lengths; caches: stacked per group
-    (``decode_cache_specs``).  Attention K/V and MLA latent caches are
-    updated IN PLACE and returned; Mamba2 states come back as new tensors.
+    token: (B,1) int32; pos: (B,) current lengths (after a VLM prefill,
+    patches included); caches: stacked per group (``decode_cache_specs``).
+    Attention K/V and MLA latent caches are updated IN PLACE and returned;
+    Mamba2 states come back as new tensors.
     Returns (logits (B,1,V) float32, caches).
     """
     x = embed_tokens(params["embed"], token)

@@ -68,7 +68,8 @@ def init_params(defs: ParamTree, generator: torch.Generator, device) -> dict:
     depend on dict order.  The law is JAX's: a normal truncated to [-2, 2]
     drawn in float32, times the fan-in scaled std, cast to the leaf's dtype.
     The bits are not ``jax.random``'s.  A leaf stacked over layers is drawn
-    one layer at a time (one float32 layer of temporaries, not the stack).
+    one layer at a time, scaled in place (one float32 layer of temporaries,
+    not the stack).
     """
     base = generator.initial_seed()
 
@@ -86,7 +87,7 @@ def init_params(defs: ParamTree, generator: torch.Generator, device) -> dict:
         for i in range(d.shape[0] if stacked else 1):
             x = torch.empty(inner, dtype=torch.float32, device=device)
             torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            (out[i] if stacked else out).copy_(x * std)
+            (out[i] if stacked else out).copy_(x.mul_(std))
         return out
 
     return _walk(defs, leaf)

@@ -3,11 +3,13 @@
 Port of ``repro.models.stack``.  ``BlockDef``, ``Group`` and
 ``plan_groups`` are copied whole; the rest supports the blocks the port can
 run (``PORTED_BLOCKS``): an attention mixer (GQA ``"attn"`` or MLA
-``"mla"``) with a dense MLP (``ffn="mlp"``, the width ``dense_ff`` where a
-block sets it) or a mixture of experts (``ffn="moe"``), and a Mamba2 mixer
-alone (``mixer="ssm"``, ``ffn="none"``).  It raises
-``NotImplementedError`` for any other block (the hybrid's SSM + MLP and the
-cross-attention decoder).  JAX's ``lax.scan`` over layers is a Python loop
+``"mla"``) or a Mamba2 mixer (``"ssm"``), each with a dense MLP
+(``ffn="mlp"``, the width ``dense_ff`` where a block sets it) or a mixture
+of experts (``ffn="moe"``), and a Mamba2 mixer alone (``ffn="none"``).  A
+hybrid group (Jamba's period) mixes them block by block, so its caches hold
+K/V for its attention blocks and SSM states for the others.  It raises
+``NotImplementedError`` for the cross-attention decoder block.  JAX's
+``lax.scan`` over layers is a Python loop
 over the leading ``layers`` axis of each parameter; its ``jax.checkpoint``
 of the scan body (``remat``) is ``torch.utils.checkpoint`` of each step.
 Every block returns the MoE load-balance loss (0 but for MoE blocks),
@@ -93,14 +95,15 @@ def plan_groups(cfg: ModelConfig) -> tuple[list[Group], list[Group]]:
 
 
 PORTED_BLOCKS = (("attn", "mlp"), ("attn", "moe"), ("mla", "mlp"), ("mla", "moe"),
-                 ("ssm", "none"))
+                 ("ssm", "none"), ("ssm", "mlp"), ("ssm", "moe"))
 
 
 def _supported(bd: BlockDef) -> None:
     if (bd.mixer, bd.ffn) not in PORTED_BLOCKS or bd.cross:
         raise NotImplementedError(
-            f"block {bd} is not ported yet: the port runs attention or MLA with a "
-            "dense MLP or MoE, and Mamba2 blocks (ROADMAP.md, Queue 1)"
+            f"block {bd} is not ported yet: the port runs attention, MLA or Mamba2 "
+            "mixers with a dense MLP or MoE (or Mamba2 alone), not cross-attention "
+            "(ROADMAP.md, Queue 1)"
         )
 
 
@@ -257,11 +260,13 @@ def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
     aux): ``aux`` float32, the blocks' MoE losses summed in layer order
     from 0, as JAX's scan carries it.
 
-    Prefill stacks each step's fresh caches.  Decode of attention and MLA
-    blocks writes K/V or the latent row into ``cache`` in place (each step
-    gets a view of its layer) and returns it; decode of Mamba2 blocks
-    stacks each step's new states (new tensors: a float32 model's bfloat16
-    conv window turns float32, as in JAX).  Train mode returns no caches;
+    Prefill stacks each step's fresh caches.  Decode, block by block: an
+    attention or MLA block writes K/V or the latent row into its ``cache``
+    tensors in place (each step gets a view of its layer) and returns those
+    tensors; a Mamba2 block's new states are stacked over the steps (new
+    tensors: a float32 model's bfloat16 conv window turns float32, as in
+    JAX).  So a hybrid group returns its K/V caches as passed in and fresh
+    SSM states beside them.  Train mode returns no caches;
     with ``remat`` each step is recomputed in the backward pass
     (``_remat_step``).
     """
@@ -286,8 +291,10 @@ def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
             if bd.ffn == "moe":
                 aux = aux + a
         per_step.append(new_caches)
-    if mode == "decode" and all(bd.mixer in ("attn", "mla") for bd in g.blocks):
-        return x, cache, aux
-    return x, {blk: {name: torch.stack([c[blk][name] for c in per_step])
-                     for name in per_step[0][blk]}
-               for blk in per_step[0]}, aux
+    out = {}
+    for i, bd in enumerate(g.blocks):
+        blk = f"blk{i}"
+        out[blk] = (cache[blk] if mode == "decode" and bd.mixer in ("attn", "mla") else
+                    {name: torch.stack([c[blk][name] for c in per_step])
+                     for name in per_step[0][blk]})
+    return x, out, aux

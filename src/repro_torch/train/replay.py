@@ -51,6 +51,10 @@ TRACKED = {
     # the float32 router takes the aux loss's gradient
     "moe": ("dec/g0/blk0/mixer/kv_norm/scale", "dec/g1/blk0/mixer/w_kr",
             "dec/g1/blk0/ln2/scale", "dec/g1/blk0/ffn/router", "final_norm/scale"),
+    # Jamba's period: (ssm, mlp), (ssm, moe), (attn, mlp), (ssm, moe)
+    "hybrid": ("dec/g0/blk0/mixer/a_log", "dec/g0/blk0/mixer/dt_bias",
+               "dec/g0/blk1/ffn/router", "dec/g0/blk2/mixer/w_k",
+               "dec/g0/blk3/mixer/d_skip", "dec/g0/blk3/ln2/scale", "final_norm/scale"),
 }
 FIXTURE_RUN = dict(steps=3, seq=32, batch=4,
                    hyper=dataclasses.asdict(TrainHyper(peak_lr=3e-3, warmup_steps=0,
@@ -82,6 +86,35 @@ TRAIN_TOL = {
     "bfloat16": dict(lr_rel=1e-6, loss_rel=5e-3, grad_norm_rel=0.03, grad_of_max=0.1,
                      post_abs=0.03, update_rel=0.05),
 }
+
+# Jamba's smoke period (the hybrid family) is held wider.  float32: step
+# 0's gradients agree as the others' do [grad_of_max 6.0e-5, grad_norm_rel
+# 8.6e-6], but AdamW's first update moves each weight by lr * g / (|g| +
+# eps), whose sign follows the roundoff where |g| is near 0 (0.1% of a
+# leaf here, by up to 2 x lr = 6e-3), and the MoE routing of the next
+# steps follows those weights [loss_rel 1.3e-4, post_abs 6.2e-4,
+# update_rel 5.5e-3].  bfloat16: the 8-layer chain amplifies rounding
+# (``models.replay.HYBRID_TOL``): JAX's own bfloat16 gradients lie 0.72
+# (grad_of_max) and 0.21 (update_rel) from its float32 ones, and the
+# port's lie as far from JAX's [loss_rel 7.3e-3, grad_norm_rel 0.025,
+# grad_of_max 0.92, post_abs 0.016, update_rel 0.27].  ``grad_of_max`` is
+# not held there (``None``): at 0.9 of a leaf's largest value no bound
+# tells a zero or negated gradient from the chain's noise.  The bfloat16
+# gradients are held block by block, each block fed JAX's input, in
+# tests/test_torch_hybrid_bf16.py.
+FAMILY_TRAIN_TOL = {
+    "hybrid": {
+        "float32": dict(loss_rel=1e-3, post_abs=6e-3, update_rel=0.02),
+        "bfloat16": dict(loss_rel=0.02, grad_norm_rel=0.1, grad_of_max=None, update_rel=0.6),
+    },
+}
+
+
+def train_tol(family: str, dtype: str) -> dict:
+    """``TRAIN_TOL[dtype]`` with the family's entries
+    (``FAMILY_TRAIN_TOL``; those set to ``None`` are not held)."""
+    tol = {**TRAIN_TOL[dtype], **FAMILY_TRAIN_TOL.get(family, {}).get(dtype, {})}
+    return {k: v for k, v in tol.items() if v is not None}
 
 
 def flat_numpy(tree) -> dict[str, np.ndarray]:

@@ -29,7 +29,8 @@ LATE_MODULES = ("core/distributed.py", "core/sharded.py", "core/workload.py",
                 "train/trainer.py", "train/replay.py", "ckpt/checkpoint.py",
                 "launch/train.py", "models/moe.py", "examples/quickstart.py",
                 "examples/cityscale_cache_sim.py", "examples/serve_paged.py",
-                "examples/train_lm.py")
+                "examples/train_lm.py", "configs/jamba_1_5_large_398b.py",
+                "configs/internvl2_2b.py")
 
 
 def test_port_never_imports_jax_or_the_jax_package():

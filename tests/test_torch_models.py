@@ -255,11 +255,12 @@ def test_prefill_and_decode_step_match_jax():
 
 
 def test_blocks_the_port_cannot_run_raise():
+    """The cross-attention decoder block and int8 K/V raise; the hybrid's
+    SSM + MLP and SSM + MoE blocks are ported (``test_torch_hybrid.py``)."""
     _, tcfg = _smoke()
-    with pytest.raises(NotImplementedError):
-        _block_defs(tcfg, BlockDef("ssm", "mlp"), torch.float32)
-    with pytest.raises(NotImplementedError):
-        _block_defs(tcfg, BlockDef("ssm", "moe"), torch.float32)
+    jamba = tconfig.get_smoke_arch("jamba_1_5_large_398b")
+    assert {"mixer", "ffn"} <= set(_block_defs(jamba, BlockDef("ssm", "mlp"), torch.float32))
+    assert {"mixer", "ffn"} <= set(_block_defs(jamba, BlockDef("ssm", "moe"), torch.float32))
     with pytest.raises(NotImplementedError):
         _block_defs(tcfg, BlockDef("attn", "mlp", cross=True), torch.float32)
     cache = torch.zeros((1, 4, 1, 16), dtype=torch.int8)

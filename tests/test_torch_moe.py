@@ -3,8 +3,11 @@ the MoE and MLA blocks of ``models/stack.py``) against the JAX package's,
 on the same weights (``params_from_numpy`` of JAX's leaves) and inputs
 made with numpy from a seed.
 
-* The four configs this slice copies, field for field; DeepSeek-V2-Lite's
-  parameter tree and count (15,706,484,224).
+* The four configs of the MoE slice and the hybrid and VLM ones
+  (Jamba-1.5-Large, InternVL2-2B), field for field; the full parameter
+  trees of the MoE, hybrid and VLM configs and their counts
+  (DeepSeek-V2-Lite 15,706,484,224; Jamba 397,711,939,584; InternVL2
+  1,889,146,880).
 * ``moe_forward`` on both dispatch branches (grouped: S >= E; global:
   decode), with tokens dropped at capacity, in float32 and bfloat16: the
   routing indices, ``keep``, the buffer rows and the tokens of the plan
@@ -42,7 +45,11 @@ from repro_torch.models.stack import _index
 from repro_torch.utils.trees import tree_map
 
 ARCHS = ("deepseek_v2_lite_16b", "qwen3_moe_235b_a22b")
-CONFIGS = ARCHS + ("phi3_medium_14b", "qwen1_5_110b")
+CONFIGS = ARCHS + ("phi3_medium_14b", "qwen1_5_110b", "jamba_1_5_large_398b", "internvl2_2b")
+# Full defs held leaf by leaf against JAX's, with the counts JAX's
+# ``param_count`` gives where this file states them.
+DEF_COUNTS = {"deepseek_v2_lite_16b": 15_706_484_224, "qwen3_moe_235b_a22b": None,
+              "jamba_1_5_large_398b": 397_711_939_584, "internvl2_2b": 1_889_146_880}
 
 
 def _np(t):
@@ -81,15 +88,15 @@ def test_configs_equal_jax(arch, getter):
             == dataclasses.asdict(getattr(jconfig, getter)(arch)))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", sorted(DEF_COUNTS))
 def test_full_defs_equal_jax(arch):
     """Every leaf's shape, axes, init, scale and dtype (the router
     float32); the parameter count."""
     jdefs = jmodel.model_param_defs(jconfig.get_arch(arch))
     tdefs = tmodel.model_param_defs(tconfig.get_arch(arch))
     assert param_count(tdefs) == jparams_mod.param_count(jdefs)
-    if arch == "deepseek_v2_lite_16b":
-        assert param_count(tdefs) == 15_706_484_224
+    if DEF_COUNTS[arch] is not None:
+        assert param_count(tdefs) == DEF_COUNTS[arch]
     jleaves = jax.tree_util.tree_flatten_with_path(
         jdefs, is_leaf=lambda x: isinstance(x, jparams_mod.ParamDef))[0]
     assert sorted(_def_paths(tdefs)) == sorted("/".join(p.key for p in path)

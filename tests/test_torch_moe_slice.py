@@ -24,7 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import MOE_FIXTURES, MOE_STEPS, jax_flat_params, jax_moe_run, moe_fixture
+from torch_parity import MOE_FIXTURES, MOE_STEPS, jax_flat_params, jax_model_run, moe_fixture
 
 from repro import config as jconfig
 from repro.models import model as jmodel
@@ -33,11 +33,11 @@ from repro_torch.models import model as tmodel
 from repro_torch.models.params import params_from_numpy
 from repro_torch.models.replay import (
     MOE_TOL,
-    compare_moe_case,
+    compare_model_case,
     load_model_replay,
-    moe_case_ok,
+    model_case_ok,
     pad_caches,
-    replay_moe_case,
+    replay_model_case,
 )
 from repro_torch.utils.trees import tree_flatten_with_paths, tree_map
 
@@ -79,7 +79,7 @@ def test_prefill_and_decode_match_jax(f32_model):
     global one."""
     _, jcfg, tcfg, jp, tp = f32_model
     tokens = np.random.default_rng(5).integers(0, jcfg.vocab_size, (2, 24)).astype(np.int32)
-    want = jax_moe_run(jcfg, jp, tokens, MOE_STEPS)
+    want = jax_model_run(jcfg, jp, tokens, MOE_STEPS)
     logits, caches = tmodel.prefill(tp, tcfg, {"tokens": torch.from_numpy(tokens)})
     np.testing.assert_allclose(_np(logits[:, 0]), want["prefill_logits"], rtol=0, atol=2e-5)
     names = [k for k in want if k.startswith("cache/")]
@@ -156,6 +156,7 @@ def test_moe_fixture_is_small(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_moe_fixture_replays_on_cpu(arch, dtype):
     cfg, tree, cases = load_model_replay(MOE_FIXTURES[arch])
-    res = compare_moe_case(cases[dtype], replay_moe_case(cfg, tree, dtype, cases[dtype], "cpu"),
-                           MOE_TOL[dtype])
-    assert moe_case_ok(res, MOE_TOL[dtype]), res
+    res = compare_model_case(cases[dtype],
+                             replay_model_case(cfg, tree, dtype, cases[dtype], "cpu"),
+                             MOE_TOL[dtype])
+    assert model_case_ok(res, MOE_TOL[dtype]), res

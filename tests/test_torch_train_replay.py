@@ -1,7 +1,8 @@
 """The committed JAX training fixtures (``train_<arch>_smoke.npz``) that
 ``chip_smoke.py`` replays on the card: regenerated from the JAX package
 and compared (so a stale file fails), small enough, and replayed here on
-the CPU within ``repro_torch.train.replay.TRAIN_TOL``.
+the CPU within ``repro_torch.train.replay.train_tol`` (``TRAIN_TOL``, and
+the hybrid family's wider entries).
 """
 import dataclasses
 import os
@@ -14,10 +15,10 @@ from repro_torch.kernels import ref
 from repro_torch.models.replay import load_model_replay
 from repro_torch.train.replay import (
     TRACKED,
-    TRAIN_TOL,
     compare_train_case,
     replay_train_case,
     train_case_ok,
+    train_tol,
 )
 
 ARCHS = sorted(TRAIN_FIXTURES)
@@ -58,7 +59,7 @@ def test_train_fixture_is_small(arch):
 
 # (arch, dtype, scan): ``None`` is the model's default (``ops.ssd_scan``
 # through ``SSDScan``), "plain" the plain scan differentiated by autograd;
-# only the Mamba2 stack runs a chunk scan.
+# the Mamba2 and Jamba stacks run a chunk scan.
 REPLAYS = [(arch, dtype, None) for arch in ARCHS for dtype in ("float32", "bfloat16")] + [
     ("mamba2_370m", dtype, "plain") for dtype in ("float32", "bfloat16")]
 
@@ -69,6 +70,6 @@ def test_train_fixture_replays_on_cpu(arch, dtype, scan):
     kw = {} if scan is None else {"ssd_scan": ref.ssd_scan_ref}
     got = replay_train_case(cfg, tree, dtype, cases[dtype], "cpu", **kw)
     res = compare_train_case(cases[dtype], got)
-    assert train_case_ok(res, TRAIN_TOL[dtype]), res
+    assert train_case_ok(res, train_tol(cfg.family, dtype)), res
     losses = cases[dtype]["loss"]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -18,9 +18,11 @@ Not a test module: it imports both packages, which only tests may do.
   ``serve_fixture``/``write_serve_fixture`` the serving ones (Granite-8B's
   and Granite-3-8B's smoke configs);
   ``ssm_fixture``/``write_ssm_fixture`` the Mamba2 one (``jax_ssm_run``);
-  ``moe_fixture``/``write_moe_fixture`` the MoE ones (``jax_moe_run``:
+  ``moe_fixture``/``write_moe_fixture`` the MoE ones (``jax_model_run``:
   DeepSeek-V2-Lite's and Qwen3-MoE's smoke configs on ``seeded_params``
-  weights); ``train_fixture``/``write_train_fixture`` the training ones
+  weights), ``model_fixture``/``write_model_fixture`` the hybrid (Jamba's
+  smoke config) and VLM (InternVL2's, with patches) ones in the same
+  format; ``train_fixture``/``write_train_fixture`` the training ones
   (``jax_train_run``: three steps of JAX's ``make_train_step``).
 * ``jax_flat_params``/``nested`` move parameter trees between the layouts.
 """
@@ -507,19 +509,28 @@ def _jax_caches(caches) -> dict:
             for i, g in enumerate(caches) for blk, c in g.items() for n, a in c.items()}
 
 
-def jax_moe_run(jcfg, jparams, tokens: np.ndarray, steps: int) -> dict:
-    """JAX's ``prefill`` of ``tokens``, its caches zero-padded to the
-    prompt plus ``steps`` in their own dtype, then ``steps`` greedy
-    ``decode_step``s: one MoE case of ``repro_torch.models.replay``."""
+def jax_model_run(jcfg, jparams, tokens: np.ndarray, steps: int,
+                  patches: np.ndarray | None = None) -> dict:
+    """JAX's ``prefill`` of ``tokens`` (after ``patches``, where given),
+    its sequence caches (K/V, MLA latent) zero-padded to the prompt plus
+    ``steps`` in their own dtype, then ``steps`` greedy ``decode_step``s
+    from position P+S: one case of ``repro_torch.models.replay``'s model
+    fixtures."""
     from repro.models.model import decode_step, prefill
 
-    logits, caches = prefill(jparams, jcfg, {"tokens": jnp.asarray(tokens)})
-    case = {"tokens": tokens, "prefill_logits": np.asarray(logits[:, 0], np.float32),
-            **_jax_caches(caches)}
+    batch = {"tokens": jnp.asarray(tokens)}
+    case = {"tokens": tokens}
+    if patches is not None:
+        batch["patches"] = jnp.asarray(patches)
+        case["patches"] = patches
+    logits, caches = prefill(jparams, jcfg, batch)
+    case.update({"prefill_logits": np.asarray(logits[:, 0], np.float32), **_jax_caches(caches)})
     pad = [(0, 0), (0, 0), (0, steps)]
-    caches = jax.tree.map(lambda a: jnp.pad(a, pad + [(0, 0)] * (a.ndim - 3)), caches)
+    caches = [{blk: {n: jnp.pad(a, pad + [(0, 0)] * (a.ndim - 3)) if n in ("k", "v", "latent")
+                     else a for n, a in c.items()} for blk, c in g.items()} for g in caches]
     tok = tokens[:, -1:]
-    pos = np.full((tokens.shape[0],), tokens.shape[1], np.int32)
+    length = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+    pos = np.full((tokens.shape[0],), length, np.int32)
     fed, out = [], []
     for _ in range(steps):
         fed.append(tok[:, 0])
@@ -548,9 +559,9 @@ def moe_fixture(arch: str) -> tuple:
         0, jcfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).astype(np.int32)
     wide = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
     cases = {
-        "bfloat16": jax_moe_run(jcfg, jparams, tokens, MOE_STEPS),
-        "float32": jax_moe_run(dataclasses.replace(jcfg, dtype="float32"), wide, tokens,
-                               MOE_STEPS),
+        "bfloat16": jax_model_run(jcfg, jparams, tokens, MOE_STEPS),
+        "float32": jax_model_run(dataclasses.replace(jcfg, dtype="float32"), wide, tokens,
+                                 MOE_STEPS),
     }
     return jcfg, cases
 
@@ -561,6 +572,54 @@ def write_moe_fixture(arch: str) -> str:
 
     path = MOE_FIXTURES[arch]
     jcfg, cases = moe_fixture(arch)
+    save_model_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), {}, cases,
+                      weights_seed=WEIGHTS_SEED)
+    return path
+
+
+MODEL_FIXTURES = {   # arch -> its committed hybrid or VLM fixture
+    "jamba_1_5_large_398b": os.path.join(FIXTURE_DIR, "hybrid_jamba_1_5_large_398b_smoke.npz"),
+    "internvl2_2b": os.path.join(FIXTURE_DIR, "vlm_internvl2_2b_smoke.npz"),
+}
+
+
+def vlm_patches(jcfg, batch: int, seed: int) -> np.ndarray:
+    """(B, P, d_model) float32 patch embeddings of bfloat16 values (so both
+    model dtypes take them exactly), drawn with numpy from ``seed``."""
+    x = np.random.default_rng(seed).standard_normal((batch, jcfg.frontend_seq, jcfg.d_model))
+    return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+
+
+@functools.cache
+def model_fixture(arch: str) -> tuple:
+    """(JAX config, cases) of the committed fixture of ``arch`` (Jamba's
+    or InternVL2's smoke config) in ``moe_fixture``'s way: bfloat16 weights
+    from ``seeded_params``, 2 prompts of 24 tokens (InternVL2's after
+    ``vlm_patches``), 6 greedy decode steps; case ``bfloat16`` runs the
+    weights as they are, case ``float32`` the float32 model on the same
+    weights widened.  Cached: the returned arrays are shared."""
+    from repro.config import get_smoke_arch
+
+    jcfg = get_smoke_arch(arch)
+    jparams = seeded_jax_params(jcfg)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, jcfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).astype(np.int32)
+    patches = vlm_patches(jcfg, MOE_BATCH, 1) if jcfg.family == "vlm" else None
+    wide = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
+    cases = {
+        "bfloat16": jax_model_run(jcfg, jparams, tokens, MOE_STEPS, patches),
+        "float32": jax_model_run(dataclasses.replace(jcfg, dtype="float32"), wide, tokens,
+                                 MOE_STEPS, patches),
+    }
+    return jcfg, cases
+
+
+def write_model_fixture(arch: str) -> str:
+    from repro_torch.config import ModelConfig
+    from repro_torch.models.replay import save_model_replay
+
+    path = MODEL_FIXTURES[arch]
+    jcfg, cases = model_fixture(arch)
     save_model_replay(path, ModelConfig(**dataclasses.asdict(jcfg)), {}, cases,
                       weights_seed=WEIGHTS_SEED)
     return path
@@ -585,9 +644,10 @@ def nested(flat: dict) -> dict:
 
 
 TRAIN_FIXTURES = {arch: os.path.join(FIXTURE_DIR, f"train_{arch}_smoke.npz")
-                  for arch in ("granite_8b", "mamba2_370m", "deepseek_v2_lite_16b")}
+                  for arch in ("granite_8b", "mamba2_370m", "deepseek_v2_lite_16b",
+                               "jamba_1_5_large_398b")}
 # Training fixtures on ``seeded_params`` weights (the file holds the seed).
-SEEDED_TRAIN = ("deepseek_v2_lite_16b",)
+SEEDED_TRAIN = ("deepseek_v2_lite_16b", "jamba_1_5_large_398b")
 
 
 def jax_train_run(jcfg, jparams) -> dict:
@@ -672,5 +732,7 @@ if __name__ == "__main__":
     print(write_ssm_fixture())
     for arch in MOE_FIXTURES:
         print(write_moe_fixture(arch))
+    for arch in MODEL_FIXTURES:
+        print(write_model_fixture(arch))
     for arch in TRAIN_FIXTURES:
         print(write_train_fixture(arch))
