@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the FLIC fog cache, its serving engine,
-its Mamba2, MoE, hybrid and VLM models, its trainer and its example
-drivers on one NVIDIA card.
+its Mamba2, MoE, hybrid, VLM and encoder-decoder models, its int8 K/V
+decode, its trainer and its example drivers on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
@@ -149,10 +149,11 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     injected at step 3 and recovered from step 2's checkpoint, its params
     against the uninterrupted run's;
 19. ``train_replay``: the committed JAX training fixtures (Granite-8B,
-    Mamba2, DeepSeek-V2-Lite and Jamba smoke configs, float32 and bfloat16;
-    DeepSeek's with MLA, MoE and its load-balance loss, Jamba's with SSM,
-    MoE and attention blocks in one group) through the port's train step
-    with the kernels, within the CPU tests' tolerances;
+    Mamba2, DeepSeek-V2-Lite, Jamba and SeamlessM4T smoke configs, float32
+    and bfloat16; DeepSeek's with MLA, MoE and its load-balance loss,
+    Jamba's with SSM, MoE and attention blocks in one group, SeamlessM4T's
+    encoder and cross-attention) through the port's train step with the
+    kernels, within the CPU tests' tolerances;
 20. ``moe``: the fifth main path, DeepSeek-V2-Lite-16B at full width (MLA,
     64 routed experts top-6 and 2 shared; 15,706,484,224 random bfloat16
     parameters from seed 0, the router float32), 4 prompts of 512 tokens
@@ -200,7 +201,28 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     yardstick;
 26. ``vlm_replay``: the committed JAX VLM fixture (InternVL2's smoke
     config with its patches, float32 and bfloat16), teacher-forced, within
-    the CPU tests' tolerances.
+    the CPU tests' tolerances;
+27. ``encdec``: the eighth main path, SeamlessM4T-medium at full width (12
+    non-causal encoder and 12 decoder layers with cross-attention, d 1,024,
+    vocab 256,206; 977,758,208 random bfloat16 parameters from seed 0),
+    nothing cut: 4 requests of 4,096 seeded bfloat16 frame embeddings and
+    512 seeded tokens prefilled at batch 4, then 32 greedy decode steps on
+    ``decode_cache_specs`` caches holding the prefill's cross K/V, twice;
+    the same tokens both times, every layer's cross K/V after the last
+    step bitwise what prefill wrote, prefill ms with the encoder's share,
+    decode ms a step and tokens/s, profiles, peak memory, and decode step
+    1 against a prefill of the same 513 tokens;
+28. ``encdec_replay``: the committed JAX encoder-decoder fixture
+    (SeamlessM4T's smoke config with its frames, float32 and bfloat16),
+    teacher-forced, within the CPU tests' tolerances; the Seamless training
+    fixture joins ``train_replay``;
+29. ``kv_int8``: Granite-8B at full width on int8 K/V caches: 4 x 512
+    tokens prefilled, each layer's K/V rows quantized (``quantize_kv_row``)
+    into ``decode_cache_specs(..., kv_int8=True)`` caches, 32 greedy steps
+    on them and 32 on the bfloat16 caches; ms a step and cache bytes of
+    each, the step-1 logit gap and the argmax agreement, the caches still
+    int8; then one step of each at context 32,768 (batch 4, caches filled
+    from seeded rows), timed.
 
 After each engine cell (``dense``, ``city``, ``replicate``, ``poisson``,
 ``trace``) a ``profile`` line checks that a tick never synchronises the host
@@ -2820,9 +2842,10 @@ def train_dense_phase(torch, device) -> dict:
 
 def train_replay_phase(torch, device) -> None:
     """The committed JAX training fixtures (Granite-8B, Mamba2,
-    DeepSeek-V2-Lite and Jamba smoke configs, float32 and bfloat16;
-    DeepSeek's with MLA, MoE and its load-balance loss in the gradient,
-    Jamba's with SSM, MoE and attention blocks in one group) through the
+    DeepSeek-V2-Lite, Jamba and SeamlessM4T smoke configs, float32 and
+    bfloat16; DeepSeek's with MLA, MoE and its load-balance loss in the
+    gradient, Jamba's with SSM, MoE and attention blocks in one group,
+    SeamlessM4T's through its encoder and cross-attention) through the
     port's train step with the kernels, held to the CPU tests' tolerances
     (``train_tol``); a stack with SSM blocks must launch ``ssd_scan`` twice
     (remat) and ``ssd_scan_bwd`` once an SSM layer for each gradient it
@@ -2837,7 +2860,8 @@ def train_replay_phase(torch, device) -> None:
         train_tol,
     )
 
-    for arch in ("granite_8b", "mamba2_370m", "deepseek_v2_lite_16b", "jamba_1_5_large_398b"):
+    for arch in ("granite_8b", "mamba2_370m", "deepseek_v2_lite_16b", "jamba_1_5_large_398b",
+                 "seamless_m4t_medium"):
         path = ROOT / "src" / "repro_torch" / "testdata" / f"train_{arch}_smoke.npz"
         cfg, tree, cases = load_model_replay(path)
         ssm_layers = sum(g.steps for g in plan_groups(cfg)[1] for bd in g.blocks
@@ -2870,16 +2894,22 @@ MOE_DISPATCH_TOL = 8 * 2.0 ** -8
 
 def greedy_generate(torch, cfg, params, prefill_caches, first_tok, prompt_len: int,
                     steps: int = MOE_DECODE_STEPS) -> dict:
-    """``steps`` greedy ``decode_step``s from ``first_tok`` at position
-    ``prompt_len`` on the prefill caches, their K/V or latent rows
+    """``greedy_steps`` on the prefill caches, their K/V or latent rows
     zero-padded to the prompt plus the steps (new tensors: the prefill
-    caches stay as they are; SSM states come back new from every step),
-    each step timed on the host clock between synchronisations.  ``last``:
-    the last step's inputs."""
-    from repro_torch.models.model import decode_step
+    caches stay as they are; SSM states come back new from every step)."""
     from repro_torch.models.replay import pad_caches
 
-    caches = pad_caches(prefill_caches, prompt_len + steps)
+    return greedy_steps(torch, cfg, params, pad_caches(prefill_caches, prompt_len + steps),
+                        first_tok, prompt_len, steps)
+
+
+def greedy_steps(torch, cfg, params, caches, first_tok, prompt_len: int, steps: int) -> dict:
+    """``steps`` greedy ``decode_step``s from ``first_tok`` at position
+    ``prompt_len`` on ``caches`` (K/V and latent rows written in place),
+    each step timed on the host clock between synchronisations.  ``last``:
+    the last step's inputs; ``caches``: the caches after the last step."""
+    from repro_torch.models.model import decode_step
+
     tok = first_tok
     pos = torch.full((tok.shape[0],), prompt_len, dtype=torch.int32, device=tok.device)
     gen, step_logits, decode_ms = [tok], [], []
@@ -2895,7 +2925,7 @@ def greedy_generate(torch, cfg, params, prefill_caches, first_tok, prompt_len: i
         gen.append(tok)
         pos = pos + 1
     return dict(tokens=torch.cat(gen, dim=1), logits=torch.stack(step_logits),
-                decode_ms=decode_ms, last=last)
+                decode_ms=decode_ms, last=last, caches=caches)
 
 
 def recording_moe(torch, record: dict):
@@ -3403,6 +3433,249 @@ def model_replay_phase(torch, device, phase: str, files: dict) -> None:
             emit(phase, fixture=name, arch=cfg.name, case=dtype, tol=tols[dtype], **res)
 
 
+ENCDEC_ARCH = "seamless_m4t_medium"
+ENCDEC_PARAMS = 977_758_208   # JAX's param_count of the config
+ENCDEC_BATCH, ENCDEC_PROMPT_LEN, ENCDEC_DECODE_STEPS = 4, 512, 32
+
+
+def spec_caches(torch, cfg, prefill_caches, batch: int, seq: int, enc_seq: int = 0,
+                kv_int8: bool = False) -> list:
+    """``decode_cache_specs`` caches on the prefill caches' device, zeros,
+    with the prefill's rows copied in: K/V at the first positions (with
+    ``kv_int8``, each row quantized by ``quantize_kv_row`` beside its
+    scale), cross K/V whole."""
+    from repro_torch.models.attention import quantize_kv_row
+    from repro_torch.models.model import decode_cache_specs
+
+    out = []
+    for spec, pre in zip(decode_cache_specs(cfg, batch, seq, enc_seq, kv_int8), prefill_caches):
+        group = {}
+        for blk, names in spec.items():
+            dev = pre[blk]["k"].device
+            t = {n: torch.zeros(sp.shape, dtype=sp.dtype, device=dev) for n, sp in names.items()}
+            s = pre[blk]["k"].shape[2]
+            for n in ("k", "v"):
+                if kv_int8:
+                    t[n][:, :, :s], t[f"{n}_scale"][:, :, :s] = quantize_kv_row(pre[blk][n])
+                else:
+                    t[n][:, :, :s] = pre[blk][n]
+            for n in ("cross_k", "cross_v"):
+                if n in t:
+                    t[n].copy_(pre[blk][n])
+            group[blk] = t
+        out.append(group)
+    return out
+
+
+def encdec_phase(torch, device) -> dict:
+    """The eighth main path: SeamlessM4T-medium at its published widths
+    (12 non-causal encoder layers over the frames, 12 decoder layers with
+    cross-attention; random bfloat16 weights from seed 0), nothing cut: 4
+    requests of 4,096 seeded bfloat16 frame embeddings (the encoder's
+    ``FLASH_THRESHOLD`` is 1,024, so it runs the non-causal flash path) and
+    512 seeded tokens prefilled at batch 4, then 32 greedy ``decode_step``s
+    on ``decode_cache_specs`` caches that hold the prefill's cross K/V;
+    again on fresh caches (the same tokens, or it fails).  Every layer's
+    cross K/V after the last step must be bitwise what prefill wrote.
+    Prefill ms with the encoder's share (``_encode`` alone), decode ms a
+    step, profiles of one prefill and one step, peak memory, and decode
+    step 1 against a prefill of the same 513 tokens."""
+    import numpy as np
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import _encode, decode_step, init_model, model_param_defs, prefill
+    from repro_torch.models.params import param_count
+
+    cfg = get_arch(ENCDEC_ARCH)
+    n_params = param_count(model_param_defs(cfg))
+    if n_params != ENCDEC_PARAMS:
+        raise AssertionError(f"encdec: {n_params} parameters, JAX counts {ENCDEC_PARAMS}")
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator().manual_seed(0), device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (ENCDEC_BATCH, ENCDEC_PROMPT_LEN))
+                              .astype(np.int32)).to(device)
+    frames = torch.from_numpy(rng.standard_normal(
+        (ENCDEC_BATCH, cfg.frontend_seq, cfg.d_model)).astype(np.float32)).to(device, torch.bfloat16)
+    batch = {"tokens": tokens, "frames": frames}
+
+    prefill(params, cfg, batch)                     # warm-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    enc_out = _encode(params, cfg, frames, False)
+    torch.cuda.synchronize()
+    encode_ms = 1e3 * (time.perf_counter() - t0)
+    del enc_out
+    cross = {n: caches[0]["blk0"][n].clone() for n in ("cross_k", "cross_v")}
+    want_cross = (cfg.num_layers, ENCDEC_BATCH, cfg.frontend_seq, cfg.num_kv_heads,
+                  cfg.resolved_head_dim)
+    if tuple(cross["cross_k"].shape) != want_cross or cross["cross_k"].dtype != torch.bfloat16:
+        raise AssertionError(f"encdec: cross K of {tuple(cross['cross_k'].shape)} "
+                             f"{cross['cross_k'].dtype}, expected {want_cross} bfloat16")
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    seq = ENCDEC_PROMPT_LEN + ENCDEC_DECODE_STEPS
+    run = greedy_steps(torch, cfg, params,
+                       spec_caches(torch, cfg, caches, ENCDEC_BATCH, seq, cfg.frontend_seq),
+                       first, ENCDEC_PROMPT_LEN, ENCDEC_DECODE_STEPS)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for n, t in cross.items():
+        if not torch.equal(run["caches"][0]["blk0"][n], t):
+            raise AssertionError(f"encdec: decode changed the {n} that prefill wrote")
+    again = greedy_steps(torch, cfg, params,
+                         spec_caches(torch, cfg, caches, ENCDEC_BATCH, seq, cfg.frontend_seq),
+                         first, ENCDEC_PROMPT_LEN, ENCDEC_DECODE_STEPS)
+    if not bool(torch.isfinite(logits).all() & torch.isfinite(run["logits"]).all()):
+        raise AssertionError("encdec: logits are not finite")
+    if not torch.equal(run["tokens"], again["tokens"]):
+        raise AssertionError("encdec: a second decode run gave other tokens")
+    if sum(launches.values()):
+        raise AssertionError(f"encdec: a kernel launched on a path without one: {launches}")
+    # decode step 1 (fed the prefill's argmax at position 512) against a
+    # prefill of the prompt and that token
+    longer = {"tokens": torch.cat([tokens, first], dim=1), "frames": frames}
+    cont, _ = prefill(params, cfg, longer)
+    step1_gap = float((run["logits"][0] - cont[:, -1]).abs().max())
+    step1_argmax = int(run["logits"][0].argmax(-1).eq(cont[:, -1].argmax(-1)).sum())
+    tok, pos, dcaches = run["last"]
+    decode_med = statistics.median(run["decode_ms"])
+    prof_decode = profile_calls(torch, lambda: decode_step(params, cfg, tok, pos, dcaches), 3,
+                                decode_med, "gemm")
+    prof_prefill = profile_calls(torch, lambda: prefill(params, cfg, batch), 1, prefill_ms,
+                                 "gemm")
+    emit("encdec", arch=cfg.name, params=n_params, init_s=init_s, batch=ENCDEC_BATCH,
+         frames=cfg.frontend_seq, prompt_len=ENCDEC_PROMPT_LEN,
+         decode_steps=ENCDEC_DECODE_STEPS, prefill_ms=prefill_ms, encode_ms=encode_ms,
+         encoder_share=encode_ms / prefill_ms,
+         prefill_tokens_per_s=ENCDEC_BATCH * ENCDEC_PROMPT_LEN / (prefill_ms / 1e3),
+         decode_ms_per_step=run["decode_ms"], decode_ms_per_step_median=decode_med,
+         decode_tokens_per_s=ENCDEC_BATCH / (decode_med / 1e3), decode_repeat_tokens_equal=True,
+         cross_kv_bitwise_after_decode=True, cross_kv_shape=list(want_cross),
+         max_abs_logit=float(run["logits"].abs().max()),
+         step1_vs_prefill_max_abs_diff=step1_gap,
+         step1_vs_prefill_argmax_agree=f"{step1_argmax}/{ENCDEC_BATCH}",
+         peak_memory_bytes=peak, profile_decode_step=prof_decode, profile_prefill=prof_prefill,
+         tokens_row0=run["tokens"][0].tolist())
+    return dict(prefill_ms=prefill_ms, decode_ms=decode_med)
+
+
+KV_INT8_ARCH = "granite_8b"
+KV_INT8_BATCH, KV_INT8_PROMPT_LEN, KV_INT8_STEPS = 4, 512, 32
+KV_INT8_LONG = "decode_32k"   # SHAPES entry whose length the long-context step takes
+
+
+def cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for g in caches for blk in g.values()
+               for t in blk.values())
+
+
+def kv_int8_phase(torch, device) -> dict:
+    """Granite-8B at full width (random bfloat16 weights from seed 0) on int8
+    K/V caches: 4 x 512 seeded tokens prefilled, each layer's K/V rows
+    quantized with ``quantize_kv_row`` into ``decode_cache_specs(...,
+    kv_int8=True)`` caches, then 32 greedy ``decode_step``s on them and 32
+    on bfloat16 ``decode_cache_specs`` caches of the same prefill.  Ms a
+    step and cache bytes of each, the step-1 logit gap and argmax
+    agreement (beside the gap that flipping the last bit of 1% of the
+    bfloat16 cache values gives), the greedy tokens' agreement; the int8 caches must still be
+    int8 (and their scales float32) after the last step.  Then one step of
+    each kind at the context of ``SHAPES["decode_32k"]`` (batch 4), the
+    caches filled from seeded rows (the int8 ones their quantization),
+    timed: a step reads all its cache rows."""
+    import numpy as np
+
+    from repro_torch.config import SHAPES, get_arch
+    from repro_torch.models.attention import quantize_kv_row
+    from repro_torch.models.model import decode_cache_specs, decode_step, init_model, prefill
+
+    cfg = get_arch(KV_INT8_ARCH)
+    params = init_model(cfg, torch.Generator().manual_seed(0), device)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (KV_INT8_BATCH, KV_INT8_PROMPT_LEN))
+                              .astype(np.int32)).to(device)
+    logits, caches = prefill(params, cfg, {"tokens": tokens})
+    first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    seq = KV_INT8_PROMPT_LEN + KV_INT8_STEPS
+    runs, nbytes = {}, {}
+    for kind, int8 in (("bf16", False), ("int8", True)):
+        dcaches = spec_caches(torch, cfg, caches, KV_INT8_BATCH, seq, kv_int8=int8)
+        nbytes[kind] = cache_bytes(dcaches)
+        runs[kind] = greedy_steps(torch, cfg, params, dcaches, first, KV_INT8_PROMPT_LEN,
+                                  KV_INT8_STEPS)
+    # the chain's own sensitivity: step 1 on the bfloat16 caches with the
+    # last bit of 1% of their values flipped
+    nudged = spec_caches(torch, cfg, caches, KV_INT8_BATCH, seq)
+    gen = torch.Generator(device=device).manual_seed(2)
+    for n in ("k", "v"):
+        bits = nudged[0]["blk0"][n].view(torch.int16)
+        bits ^= (torch.rand(bits.shape, generator=gen, device=device) < 0.01).to(torch.int16)
+    one_ulp = greedy_steps(torch, cfg, params, nudged, first, KV_INT8_PROMPT_LEN, 1)
+    one_ulp_gap = float((one_ulp["logits"][0] - runs["bf16"]["logits"][0]).abs().max())
+    del nudged, one_ulp
+    last = runs["int8"]["caches"][0]["blk0"]
+    if (last["k"].dtype, last["v"].dtype, last["k_scale"].dtype) != (
+            torch.int8, torch.int8, torch.float32):
+        raise AssertionError(f"kv_int8: caches turned {last['k'].dtype}, {last['k_scale'].dtype}")
+    if not bool(torch.isfinite(runs["int8"]["logits"]).all()):
+        raise AssertionError("kv_int8: logits are not finite")
+    ratio = nbytes["int8"] / nbytes["bf16"]
+    want_ratio = (1 + 4 / cfg.resolved_head_dim) / 2   # int8 rows + a float32 scale a row
+    if abs(ratio - want_ratio) > 1e-9:
+        raise AssertionError(f"kv_int8: int8 caches take {ratio} of bfloat16's, not {want_ratio}")
+    step1 = runs["int8"]["logits"][0], runs["bf16"]["logits"][0]
+    step1_gap = float((step1[0] - step1[1]).abs().max())
+    step1_agree = int(step1[0].argmax(-1).eq(step1[1].argmax(-1)).sum())
+    token_agree = int(runs["int8"]["tokens"].eq(runs["bf16"]["tokens"]).sum())
+    step_ms = {k: statistics.median(r["decode_ms"]) for k, r in runs.items()}
+    del runs, caches, last
+
+    # one step of each kind at decode_32k's context, batch 4
+    long_seq = SHAPES[KV_INT8_LONG].seq_len
+    gen = torch.Generator(device=device).manual_seed(1)
+    long_ms = {}
+    for kind, int8 in (("bf16", False), ("int8", True)):
+        specs = decode_cache_specs(cfg, KV_INT8_BATCH, long_seq, kv_int8=int8)[0]["blk0"]
+        blk = {n: torch.empty(sp.shape, dtype=sp.dtype, device=device) for n, sp in specs.items()}
+        for n in ("k", "v"):
+            for layer in range(blk[n].shape[0]):   # one layer of temporaries at a time
+                rows = torch.randn(blk[n].shape[1:], generator=gen, device=device).to(
+                    torch.bfloat16)
+                if int8:
+                    blk[n][layer], blk[f"{n}_scale"][layer] = quantize_kv_row(rows)
+                else:
+                    blk[n][layer] = rows
+        long_caches = [{"blk0": blk}]
+        tok = first
+        pos = torch.full((KV_INT8_BATCH,), long_seq - 1, dtype=torch.int32, device=device)
+        times = []
+        for _ in range(4):   # a warm-up, then three timed steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode_step(params, cfg, tok, pos, long_caches)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        long_ms[kind] = dict(ms=statistics.median(times[1:]), cache_bytes=cache_bytes(long_caches))
+        del long_caches, blk
+        torch.cuda.empty_cache()
+    emit("kv_int8", arch=cfg.name, batch=KV_INT8_BATCH, prompt_len=KV_INT8_PROMPT_LEN,
+         decode_steps=KV_INT8_STEPS, decode_ms_per_step_median=step_ms, cache_bytes=nbytes,
+         cache_ratio=ratio, step1_max_abs_diff=step1_gap,
+         step1_one_ulp_nudge_max_abs_diff=one_ulp_gap,
+         step1_argmax_agree=f"{step1_agree}/{KV_INT8_BATCH}",
+         greedy_tokens_agree=f"{token_agree}/{KV_INT8_BATCH * (KV_INT8_STEPS + 1)}",
+         caches_int8_after_decode=True, long_context=long_seq, long_context_step=long_ms)
+    return dict(step_ms=step_ms, long_context_step=long_ms)
+
+
 EXAMPLE_TIMEOUT_S = 300
 EXAMPLES = {   # module of repro_torch.examples -> (arguments, what its last line must hold)
     "quickstart": ([], "WAN bytes vs no-cache"),
@@ -3460,7 +3733,7 @@ def main() -> None:
     from repro_torch.core import workload as wl
     from repro_torch.core.simulator import SimConfig
     from repro_torch.kernels import build, ops
-    from repro_torch.models.replay import HYBRID_TOL, MOE_TOL, VLM_TOL
+    from repro_torch.models.replay import ENCDEC_TOL, HYBRID_TOL, MOE_TOL, VLM_TOL
 
     device = torch.device("cuda")
     # float32 products in full float32 (the plain versions are references)
@@ -3595,6 +3868,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     model_replay_phase(torch, device, "vlm_replay", {"vlm_internvl2_2b_smoke.npz": VLM_TOL})
     elapsed("hybrid and vlm")
+
+    torch.cuda.empty_cache()
+    encdec_phase(torch, device)
+    torch.cuda.empty_cache()
+    model_replay_phase(torch, device, "encdec_replay",
+                       {"encdec_seamless_m4t_medium_smoke.npz": ENCDEC_TOL})
+    kv_int8_phase(torch, device)
+    torch.cuda.empty_cache()
+    elapsed("encdec and kv_int8")
 
     # Headline case of each FLIC kernel: the first main-path case of the
     # kernels phase.  Launches: the main path's kernel runs of the five

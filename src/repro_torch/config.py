@@ -3,9 +3,11 @@
 A copy of ``repro.config.ModelConfig`` with the same field names and
 defaults, so a test can convert the JAX package's config with
 ``ModelConfig(**dataclasses.asdict(jax_cfg))``.  ``get_arch(name)`` and
-``get_smoke_arch(name)`` resolve ``repro_torch.configs.<name>``; the port
-carries only the configurations it can run (``configs/``).
-``parse_overrides`` reads the launchers' trailing ``key=value`` arguments.
+``get_smoke_arch(name)`` resolve ``repro_torch.configs.<name>`` for each
+of the ten ``ARCH_IDS``.  ``ShapeConfig``, ``SHAPES`` and ``cells_for`` are
+the four input-shape cells and which of them an architecture runs, copied
+from the JAX package.  ``parse_overrides`` reads the launchers' trailing
+``key=value`` arguments.
 """
 from __future__ import annotations
 
@@ -93,6 +95,35 @@ class ModelConfig:
         return self.family in ("ssm", "hybrid")
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+ARCH_IDS = [
+    "jamba_1_5_large_398b",
+    "phi3_medium_14b",
+    "granite_8b",
+    "qwen1_5_110b",
+    "granite_3_8b",
+    "seamless_m4t_medium",
+    "deepseek_v2_lite_16b",
+    "qwen3_moe_235b_a22b",
+    "mamba2_370m",
+    "internvl2_2b",
+]
+
+
 def _module(name: str):
     key = name.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{key}")
@@ -106,6 +137,14 @@ def get_arch(name: str) -> ModelConfig:
 def get_smoke_arch(name: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""
     return _module(name).SMOKE_CONFIG
+
+
+def cells_for(arch: ModelConfig) -> list[str]:
+    """The shape cells that are *runnable* for this arch (skips documented)."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch.supports_long_context:
+        cells.append("long_500k")
+    return cells
 
 
 def parse_overrides(args: list[str]) -> dict[str, Any]:

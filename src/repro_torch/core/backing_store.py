@@ -100,6 +100,22 @@ def commit_writes(store: StoreState, n_rows: torch.Tensor, n_calls: torch.Tensor
     )
 
 
+def read_from_store(store: StoreState, enqueue_index, profile: StoreProfile
+                    ) -> tuple[StoreState, torch.Tensor, torch.Tensor]:
+    """One read request for the row that was enqueued at ``enqueue_index``.
+
+    Returns (store, found, txn_bytes).  FIFO drain: present iff
+    enqueue_index < drained_total.  Sheets semantics: the whole table
+    crosses the wire whether or not the row is found; the store counts one
+    more API call.
+    """
+    found = torch.as_tensor(enqueue_index, dtype=torch.int32,
+                            device=store.drained_total.device) < store.drained_total
+    txn = profile.read_txn_bytes(store.drained_total)
+    store = dataclasses.replace(store, api_calls=store.api_calls + 1)
+    return store, found, txn
+
+
 def commit_keyed_rows(store: StoreState, key_ids, data_ts, mask) -> StoreState:
     """Fold a drained batch of keyed versions into the table (scatter-max)."""
     ku = store.table_ts.shape[0]

@@ -73,6 +73,26 @@ def empty_cache(sets: int, ways: int, payload_dim: int, batch: tuple[int, ...] =
     )
 
 
+def null_line(payload_dim: int, dtype: torch.dtype = torch.float32, device=None) -> CacheLine:
+    """One invalid, clean row with the null tag: the no-op lane."""
+    def i32(v):
+        return torch.full((), v, dtype=torch.int32, device=device)
+
+    return CacheLine(
+        key=i32(NULL_TAG),
+        data_ts=i32(-1),
+        origin=i32(-1),
+        data=torch.zeros((payload_dim,), dtype=dtype, device=device),
+        valid=torch.zeros((), dtype=torch.bool, device=device),
+        dirty=torch.zeros((), dtype=torch.bool, device=device),
+    )
+
+
+def occupancy(cache: CacheState) -> torch.Tensor:
+    """Number of valid lines (per node if batched), int32."""
+    return cache.valid.sum(dim=(-2, -1), dtype=torch.int32)
+
+
 def set_index(keys: torch.Tensor, sets: int) -> torch.Tensor:
     """The set of each key: its unsigned 32-bit value mod ``sets``, as int64."""
     return as_u32(keys) % sets

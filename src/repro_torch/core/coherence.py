@@ -62,6 +62,20 @@ def gilbert_elliott_mask(state: GilbertElliott, u: torch.Tensor,
     return u >= loss_p.reshape((u.shape[0],) + (1,) * (u.dim() - 1))
 
 
+def gilbert_elliott_step(state: GilbertElliott, u_up: torch.Tensor, u_dn: torch.Tensor,
+                         u: torch.Tensor, p_g2b: float = 0.05, p_b2g: float = 0.4,
+                         loss_good: float = 0.01, loss_bad: float = 0.5
+                         ) -> tuple[GilbertElliott, torch.Tensor]:
+    """Advance the channel one tick and draw its delivery mask (the shape of
+    ``u``, receivers leading): (state, delivered).  JAX's three subkeys of
+    the tick are the three uniforms here: ``u_up`` and ``u_dn`` (N,) for the
+    state's flips, ``u`` for the mask."""
+    if u.shape[0] != state.bad.shape[0]:
+        raise ValueError("mask leading axis must be receivers")
+    state = gilbert_elliott_advance(state, u_up, u_dn, p_g2b, p_b2g)
+    return state, gilbert_elliott_mask(state, u, loss_good=loss_good, loss_bad=loss_bad)
+
+
 def merge_broadcasts(caches: CacheState, rows: CacheLine, delivered: torch.Tensor,
                      now, self_always: bool = True,
                      node_ids: torch.Tensor | None = None) -> tuple[CacheState, CacheLine]:

@@ -15,7 +15,10 @@ K/V through the ``paged_attention`` kernel.  Without a mesh the JAX
 package's KV-head expansion is 1, so the port has none.  MLA
 (``mla_defs``, ``mla_forward``, ``mla_decode``) keeps a compressed latent
 cache ``(B, S, r+dr)``; its decode absorbs ``W_uk`` and ``W_uv`` into the
-query and output.  The int8 KV cache is later work (ROADMAP.md, Queue 1).
+query and output.  An int8 contiguous cache holds each K/V row
+quantized per (token, head) (``quantize_kv_row``) beside its float32
+scale; ``gqa_decode`` writes both in place and attends over the
+dequantized cache (``dequantize_kv``), as JAX's decode does.
 """
 from __future__ import annotations
 
@@ -180,27 +183,53 @@ def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Ten
     return y, KVUpdate(k=k, v=v)
 
 
+def quantize_kv_row(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 of K/V rows (..., Hkv, D): the rows
+    as int8 (round half to even, clipped to [-127, 127]) and their float32
+    scales (..., Hkv), each the row's largest |value| (at least 1e-8) over
+    127."""
+    absmax = torch.clamp(f32(x).abs().amax(dim=-1, keepdim=True), min=1e-8)
+    scale = absmax / 127.0
+    q = torch.clamp(torch.round(f32(x) / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale[..., None]
+
+
 def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
-               k_cache: torch.Tensor, v_cache: torch.Tensor):
+               k_cache: torch.Tensor, v_cache: torch.Tensor,
+               k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None):
     """One decode step. x: (B,1,d); pos: (B,) write position (= current len).
 
     Writes the new K/V row at ``pos`` of the contiguous caches IN PLACE and
-    attends over ``pos+1`` entries.  Returns (y, k_cache, v_cache); the
-    caches are the tensors passed in.  JAX's int8 caches (with their
-    scales) are not ported.
+    attends over ``pos+1`` entries.  An int8 cache (``k_scale``/``v_scale``
+    (B,S,Hkv) float32 given) takes the row quantized (``quantize_kv_row``)
+    and its scales, also in place, and is dequantized to float32 for the
+    scores.  Returns (y, k_cache, v_cache, k_scale, v_scale): the tensors
+    passed in (scales ``None`` for a bfloat16 or float32 cache).
     """
-    if k_cache.dtype == torch.int8:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP.md, Queue 1: int8 KV path)"
-        )
     q, k, v = project_qkv(p, cfg, x, pos[:, None])
     bidx = torch.arange(x.shape[0], device=x.device)
     pos_l = pos.long()
-    k_cache[bidx, pos_l] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, pos_l] = v[:, 0].to(v_cache.dtype)
-    out = decode_attention(q, k_cache, v_cache, pos + 1)
+    if k_cache.dtype == torch.int8:
+        if k_scale is None or v_scale is None:
+            raise ValueError("an int8 K/V cache needs its k_scale and v_scale")
+        kq, ks = quantize_kv_row(k[:, 0])
+        vq, vs = quantize_kv_row(v[:, 0])
+        k_cache[bidx, pos_l] = kq
+        v_cache[bidx, pos_l] = vq
+        k_scale[bidx, pos_l] = ks
+        v_scale[bidx, pos_l] = vs
+        k_full, v_full = dequantize_kv(k_cache, k_scale), dequantize_kv(v_cache, v_scale)
+    else:
+        k_cache[bidx, pos_l] = k[:, 0].to(k_cache.dtype)
+        v_cache[bidx, pos_l] = v[:, 0].to(v_cache.dtype)
+        k_full, v_full = k_cache, v_cache
+    out = decode_attention(q, k_full, v_full, pos + 1)
     y = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
-    return y, k_cache, v_cache
+    return y, k_cache, v_cache, k_scale, v_scale
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@
 Port of ``repro.models.layers``: plain functions over weight dicts, with
 JAX's casts (float32 inside ``rmsnorm``, ``gated_rmsnorm`` and
 ``apply_rope``; back to the input dtype after, the gate's for
-``gated_rmsnorm``).  JAX's activation-sharding hints have no counterpart.
+``gated_rmsnorm``).  ``einsum`` and ``matmul`` promote a bfloat16 and a
+float32 operand to float32, as JAX's products do (a float32 model's
+cross-attention over bfloat16 cross K/V; ``lm_logits``).  JAX's
+activation-sharding hints have no counterpart.
 """
 from __future__ import annotations
 
@@ -16,6 +19,22 @@ from repro_torch.models.params import ParamDef
 
 def f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
+
+
+def promote(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both operands in their common dtype (JAX's promotion of a product's
+    operands: bfloat16 with float32 is float32, exactly widened)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, *promote(a, b))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = promote(a, b)
+    return a @ b
 
 
 # ---------------------------------------------------------------------------
@@ -102,3 +121,9 @@ def embed_defs(cfg: ModelConfig, dtype) -> dict:
 
 def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return p["tok"][tokens.long()]
+
+
+def lm_logits(p: dict, x: torch.Tensor, tie: bool) -> torch.Tensor:
+    """Logits of hidden states ``x`` through the head (the embedding's
+    transpose when ``tie``), in the promoted dtype of the product."""
+    return matmul(x, p["tok"].T if tie else p["head"])

@@ -1,11 +1,15 @@
 """Top-level model API: param defs, init, forward, prefill, decode.
 
-Port of ``repro.models.model`` for the stacks the port runs (dense GQA,
-Mamba2 SSM, the MoE family: GQA or MLA mixers with expert FFNs, the hybrid
-family: Mamba2 and GQA mixers with dense or expert FFNs in one group, and
-the VLM: a dense stack behind a prefix of patch embeddings):
+Port of ``repro.models.model`` for every family (dense GQA, Mamba2 SSM,
+the MoE family: GQA or MLA mixers with expert FFNs, the hybrid family:
+Mamba2 and GQA mixers with dense or expert FFNs in one group, the VLM: a
+dense stack behind a prefix of patch embeddings, and the encoder-decoder:
+a non-causal encoder over frame embeddings, read by the decoder's
+cross-attention):
 
   * ``model_param_defs(cfg)``        — ParamDef tree (single source of truth);
+  * ``abstract_model`` / ``model_axes`` — its shapes and dtypes as tensors
+    on the ``meta`` device (nothing allocated), and its logical axes;
   * ``init_model(cfg, generator, device)`` — random weights from a seed, on
     the card unless ``device`` says otherwise;
   * ``forward(params, cfg, batch)``  — hidden states for train/prefill;
@@ -24,8 +28,12 @@ and an optional ``"loss_mask"``.  A VLM batch adds ``"patches"`` (B,P,d_model),
 precomputed patch embeddings: they are cast to the embedding dtype and put
 before the text embeddings, positions run over all P+S, ``forward`` returns
 P as the text offset (the loss is over the text alone), and decode after
-such a prefill starts at position P+S.  The encoder is later work
-(ROADMAP.md, Queue 1).
+such a prefill starts at position P+S.  An encoder-decoder batch adds
+``"frames"`` (B,S_enc,d_model) in the model's dtype (JAX's scan over
+layers refuses others: its carry would change dtype): ``_encode`` runs
+them through the encoder, and every decoder block attends to its output;
+prefill puts each layer's cross K/V in the caches (``cross_k``/
+``cross_v``), and ``decode_step`` reads them there.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.simulator import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import embed_defs, embed_tokens, f32, rmsnorm, rmsnorm_defs
-from repro_torch.models.params import init_params
+from repro_torch.models.params import abstract_params, init_params, logical_axes
 from repro_torch.models.ssm import ScanFn
 from repro_torch.models.stack import apply_group, cache_specs, group_param_defs, plan_groups
 
@@ -50,9 +58,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def model_param_defs(cfg: ModelConfig) -> dict:
     dt = _dtype(cfg)
     enc_groups, dec_groups = plan_groups(cfg)
-    if enc_groups:
-        raise NotImplementedError("encoder-decoder stacks are not ported yet (ROADMAP.md, Queue 1)")
     defs: dict[str, Any] = {"embed": embed_defs(cfg, dt)}
+    if enc_groups:
+        defs["enc"] = {f"g{i}": group_param_defs(cfg, g, dt) for i, g in enumerate(enc_groups)}
+        defs["enc_norm"] = rmsnorm_defs(cfg.d_model, dt)
     defs["dec"] = {f"g{i}": group_param_defs(cfg, g, dt) for i, g in enumerate(dec_groups)}
     defs["final_norm"] = rmsnorm_defs(cfg.d_model, dt)
     return defs
@@ -64,7 +73,33 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None) -> dic
     return init_params(model_param_defs(cfg), generator, resolve_device(device))
 
 
+def abstract_model(cfg: ModelConfig) -> dict:
+    return abstract_params(model_param_defs(cfg))
+
+
+def model_axes(cfg: ModelConfig) -> dict:
+    return logical_axes(model_param_defs(cfg))
+
+
 LOSS_CHUNK = 1024
+
+
+def _encode(params, cfg: ModelConfig, frames: torch.Tensor, remat: bool,
+            remat_policy: str = "dots") -> torch.Tensor:
+    """The encoder's output (B,S_enc,d_model): the frames through the
+    encoder groups in train mode (non-causal attention, positions
+    0..S_enc-1), then ``enc_norm``."""
+    enc_groups, _ = plan_groups(cfg)
+    if frames.dtype != _dtype(cfg):
+        raise ValueError(f"frames are {frames.dtype}; the {cfg.dtype} model takes "
+                         f"{_dtype(cfg)} frames")
+    x = frames
+    b, s = x.shape[:2]
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    for i, g in enumerate(enc_groups):
+        x, _, _ = apply_group(params["enc"][f"g{i}"], cfg, g, x, pos, "train", remat=remat,
+                              remat_policy=remat_policy)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def _decoder_input(params, cfg: ModelConfig, batch: dict):
@@ -85,6 +120,9 @@ def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train",
     pass (``stack.apply_group``).  ``aux`` (0-d float32) is the MoE
     load-balance loss summed over the layers, 0 for a stack without
     experts.  ``text_offset`` is the VLM patch count, else 0."""
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _encode(params, cfg, batch["frames"], remat, remat_policy)
     x, offset = _decoder_input(params, cfg, batch)
     b, s = x.shape[:2]
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
@@ -94,7 +132,8 @@ def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train",
     for i, g in enumerate(dec_groups):
         x, c, a = apply_group(params["dec"][f"g{i}"], cfg, g, x, pos,
                               "prefill" if mode == "prefill" else "train",
-                              ssd_scan=ssd_scan, remat=remat, remat_policy=remat_policy)
+                              ssd_scan=ssd_scan, remat=remat, remat_policy=remat_policy,
+                              enc_out=enc_out)
         aux = aux + a
         if mode == "prefill":
             caches.append(c)
@@ -162,8 +201,9 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: torch.Tensor
 
     token: (B,1) int32; pos: (B,) current lengths (after a VLM prefill,
     patches included); caches: stacked per group (``decode_cache_specs``).
-    Attention K/V and MLA latent caches are updated IN PLACE and returned;
-    Mamba2 states come back as new tensors.
+    Attention K/V (int8 ones with their scales) and MLA latent caches are
+    updated IN PLACE and returned; an encoder-decoder's cross K/V are read
+    and returned as they are; Mamba2 states come back as new tensors.
     Returns (logits (B,1,V) float32, caches).
     """
     x = embed_tokens(params["embed"], token)
@@ -178,5 +218,6 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: torch.Tensor
     return logits, new_caches
 
 
-def decode_cache_specs(cfg: ModelConfig, batch: int, seq: int) -> list[dict]:
-    return cache_specs(cfg, batch, seq)
+def decode_cache_specs(cfg: ModelConfig, batch: int, seq: int, enc_seq: int = 0,
+                       kv_int8: bool = False) -> list[dict]:
+    return cache_specs(cfg, batch, seq, enc_seq, kv_int8)

@@ -3,8 +3,10 @@
 Port of ``repro.models.params``.  A model is a nested dict of ``ParamDef``s;
 ``init_params`` materializes it on a device and ``params_from_numpy`` takes
 the JAX package's parameter tree (as numpy arrays, JAX's layout and key
-names) so that both frameworks run the same weights.  The logical sharding
-axes are kept for parity with the JAX definitions; the port does not shard.
+names) so that both frameworks run the same weights.  ``abstract_params``
+gives the tree's shapes and dtypes without allocating (``meta`` tensors).
+The logical sharding axes are kept for parity with the JAX definitions
+(``logical_axes``); the port does not shard.
 """
 from __future__ import annotations
 
@@ -91,6 +93,17 @@ def init_params(defs: ParamTree, generator: torch.Generator, device) -> dict:
         return out
 
     return _walk(defs, leaf)
+
+
+def abstract_params(defs: ParamTree) -> dict:
+    """Every parameter as a tensor on the ``meta`` device, of its def's
+    shape and dtype (JAX's ``ShapeDtypeStruct``s): nothing is allocated."""
+    return _walk(defs, lambda _, d: torch.empty(d.shape, dtype=d.dtype, device="meta"))
+
+
+def logical_axes(defs: ParamTree) -> dict:
+    """Tree of logical-axis tuples, parallel to the params tree."""
+    return _walk(defs, lambda _, d: d.axes)
 
 
 def param_count(defs: ParamTree) -> int:

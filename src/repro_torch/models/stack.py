@@ -1,14 +1,15 @@
 """Transformer stacks: block descriptors and a loop over layers.
 
 Port of ``repro.models.stack``.  ``BlockDef``, ``Group`` and
-``plan_groups`` are copied whole; the rest supports the blocks the port can
-run (``PORTED_BLOCKS``): an attention mixer (GQA ``"attn"`` or MLA
-``"mla"``) or a Mamba2 mixer (``"ssm"``), each with a dense MLP
-(``ffn="mlp"``, the width ``dense_ff`` where a block sets it) or a mixture
-of experts (``ffn="moe"``), and a Mamba2 mixer alone (``ffn="none"``).  A
+``plan_groups`` are copied whole; the rest supports every block kind of
+the ten configurations: an attention mixer (GQA
+``"attn"``, causal or not, or MLA ``"mla"``) or a Mamba2 mixer
+(``"ssm"``), each with a dense MLP (``ffn="mlp"``, the width ``dense_ff``
+where a block sets it) or a mixture of experts (``ffn="moe"``), and a
+Mamba2 mixer alone (``ffn="none"``); a GQA block may add cross-attention
+over an encoder's output (``cross``, the encoder-decoder's decoder).  A
 hybrid group (Jamba's period) mixes them block by block, so its caches hold
-K/V for its attention blocks and SSM states for the others.  It raises
-``NotImplementedError`` for the cross-attention decoder block.  JAX's
+K/V for its attention blocks and SSM states for the others.  JAX's
 ``lax.scan`` over layers is a Python loop
 over the leading ``layers`` axis of each parameter; its ``jax.checkpoint``
 of the scan body (``remat``) is ``torch.utils.checkpoint`` of each step.
@@ -29,7 +30,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import mlp, mlp_defs, rmsnorm, rmsnorm_defs
+from repro_torch.models.layers import apply_rope, einsum, mlp, mlp_defs, rmsnorm, rmsnorm_defs
 from repro_torch.models.params import stack_defs
 
 
@@ -94,27 +95,19 @@ def plan_groups(cfg: ModelConfig) -> tuple[list[Group], list[Group]]:
     return [], [Group(cfg.num_layers, (BlockDef("attn", "mlp"),))]
 
 
-PORTED_BLOCKS = (("attn", "mlp"), ("attn", "moe"), ("mla", "mlp"), ("mla", "moe"),
-                 ("ssm", "none"), ("ssm", "mlp"), ("ssm", "moe"))
-
-
-def _supported(bd: BlockDef) -> None:
-    if (bd.mixer, bd.ffn) not in PORTED_BLOCKS or bd.cross:
-        raise NotImplementedError(
-            f"block {bd} is not ported yet: the port runs attention, MLA or Mamba2 "
-            "mixers with a dense MLP or MoE (or Mamba2 alone), not cross-attention "
-            "(ROADMAP.md, Queue 1)"
-        )
-
-
 # ---------------------------------------------------------------------------
 # Param defs
 # ---------------------------------------------------------------------------
 
 def _block_defs(cfg: ModelConfig, bd: BlockDef, dtype) -> dict:
-    _supported(bd)
-    mixer = {"attn": attn.gqa_defs, "mla": attn.mla_defs, "ssm": ssm_mod.ssm_defs}[bd.mixer]
-    d: dict[str, Any] = {"ln1": rmsnorm_defs(cfg.d_model, dtype), "mixer": mixer(cfg, dtype)}
+    mixers = {"attn": attn.gqa_defs, "mla": attn.mla_defs, "ssm": ssm_mod.ssm_defs}
+    if bd.mixer not in mixers:
+        raise ValueError(bd.mixer)
+    d: dict[str, Any] = {"ln1": rmsnorm_defs(cfg.d_model, dtype),
+                         "mixer": mixers[bd.mixer](cfg, dtype)}
+    if bd.cross:
+        d["ln_cross"] = rmsnorm_defs(cfg.d_model, dtype)
+        d["cross"] = attn.gqa_defs(cfg, dtype)
     if bd.ffn == "mlp":
         d["ln2"] = rmsnorm_defs(cfg.d_model, dtype)
         d["ffn"] = mlp_defs(cfg.d_model, bd.dense_ff or cfg.d_ff, dtype)
@@ -134,8 +127,7 @@ def group_param_defs(cfg: ModelConfig, g: Group, dtype) -> dict:
 # ---------------------------------------------------------------------------
 
 def _block_cache_spec(cfg: ModelConfig, bd: BlockDef, steps: int, batch: int,
-                      seq: int) -> dict:
-    _supported(bd)
+                      seq: int, enc_seq: int = 0, kv_int8: bool = False) -> dict:
     if bd.mixer == "ssm":
         conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
         return {
@@ -147,18 +139,31 @@ def _block_cache_spec(cfg: ModelConfig, bd: BlockDef, steps: int, batch: int,
         return {"latent": CacheSpec((steps, batch, seq, cfg.kv_lora_rank + cfg.rope_head_dim),
                                     torch.bfloat16)}
     shape = (steps, batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": CacheSpec(shape, torch.bfloat16), "v": CacheSpec(shape, torch.bfloat16)}
+    kv_dt = torch.int8 if kv_int8 else torch.bfloat16
+    out = {"k": CacheSpec(shape, kv_dt), "v": CacheSpec(shape, kv_dt)}
+    if kv_int8:
+        out["k_scale"] = CacheSpec(shape[:-1], torch.float32)
+        out["v_scale"] = CacheSpec(shape[:-1], torch.float32)
+    if bd.cross:
+        cross = (steps, batch, enc_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        out["cross_k"] = CacheSpec(cross, torch.bfloat16)
+        out["cross_v"] = CacheSpec(cross, torch.bfloat16)
+    return out
 
 
-def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> list[dict]:
+def cache_specs(cfg: ModelConfig, batch: int, seq: int, enc_seq: int = 0,
+                kv_int8: bool = False) -> list[dict]:
     """Per decoder group, ``{"blk<i>": {name: CacheSpec}}`` stacked over
-    steps: attention ``k``/``v`` bfloat16 ``(steps, batch, seq, Hkv, D)``;
+    steps: attention ``k``/``v`` bfloat16 ``(steps, batch, seq, Hkv, D)``,
+    or with ``kv_int8`` int8 beside float32 ``k_scale``/``v_scale``
+    ``(steps, batch, seq, Hkv)``; a cross-attention block's ``cross_k``/
+    ``cross_v`` bfloat16 ``(steps, batch, enc_seq, Hkv, D)``;
     MLA ``latent`` bfloat16 ``(steps, batch, seq, r+dr)``;
     Mamba2 ``conv`` bfloat16 ``(steps, batch, K-1, conv_dim)`` (the last
     K-1 pre-activation conv inputs) and ``ssd`` float32 ``(steps, batch, H,
     P, N)``."""
     _, dec = plan_groups(cfg)
-    return [{f"blk{i}": _block_cache_spec(cfg, bd, g.steps, batch, seq)
+    return [{f"blk{i}": _block_cache_spec(cfg, bd, g.steps, batch, seq, enc_seq, kv_int8)
              for i, bd in enumerate(g.blocks)} for g in dec]
 
 
@@ -166,11 +171,41 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int) -> list[dict]:
 # Forward
 # ---------------------------------------------------------------------------
 
+def _cross_attention(bp: dict, cfg: ModelConfig, x, positions, mode: str,
+                     cache: Optional[dict], kv_len, enc_out, new_cache: dict):
+    """The decoder block's cross-attention step, added to ``x``: queries of
+    ``x`` (RoPE at the decode position, or the prompt positions) against
+    K/V of the encoder's output (RoPE on K over the encoder positions),
+    non-causal.  Prefill computes the K/V and puts them in ``new_cache``
+    (``cross_k``/``cross_v``); decode reads them from ``cache`` and carries
+    them through unchanged."""
+    p = bp["cross"]
+    hc = rmsnorm(bp["ln_cross"], x, cfg.norm_eps)
+    if mode == "decode":
+        ck, cv = cache["cross_k"], cache["cross_v"]
+    else:
+        enc_pos = torch.arange(enc_out.shape[1], dtype=torch.int32, device=x.device)[None]
+        ck = einsum("bsd,dhk->bshk", enc_out, p["w_k"])
+        cv = einsum("bsd,dhk->bshk", enc_out, p["w_v"])
+        if cfg.qkv_bias:
+            ck, cv = ck + p["b_k"], cv + p["b_v"]
+        ck = apply_rope(ck, enc_pos, cfg.rope_theta)
+    if mode != "train":
+        new_cache["cross_k"], new_cache["cross_v"] = ck, cv
+    q = einsum("bsd,dhk->bshk", hc, p["w_q"])
+    if cfg.qkv_bias:
+        q = q + p["b_q"]
+    q = apply_rope(q, kv_len[:, None] if mode == "decode" else positions, cfg.rope_theta)
+    yc = attn.full_attention(q, ck, cv, causal=False)
+    return x + einsum("bshk,hkd->bsd", yc, p["w_o"])
+
+
 def _apply_block(bp: dict, cfg: ModelConfig, bd: BlockDef, x, positions, mode: str,
-                 cache: Optional[dict], kv_len, ssd_scan: ssm_mod.ScanFn = ops.ssd_scan):
+                 cache: Optional[dict], kv_len, ssd_scan: ssm_mod.ScanFn = ops.ssd_scan,
+                 enc_out=None):
     """One sublayer. Returns (x, new_cache, aux): ``aux`` is the MoE
-    load-balance loss, 0.0 for a block without experts."""
-    _supported(bd)
+    load-balance loss, 0.0 for a block without experts.  ``enc_out``: the
+    encoder's output, which a cross-attention block reads outside decode."""
     aux = 0.0
     new_cache: dict[str, Any] = {}
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
@@ -192,14 +227,19 @@ def _apply_block(bp: dict, cfg: ModelConfig, bd: BlockDef, x, positions, mode: s
             if mode == "prefill":
                 new_cache = {"latent": latent}
     elif mode == "decode":
-        y, k_cache, v_cache = attn.gqa_decode(
-            bp["mixer"], cfg, h, kv_len, cache["k"], cache["v"])
+        y, k_cache, v_cache, k_s, v_s = attn.gqa_decode(
+            bp["mixer"], cfg, h, kv_len, cache["k"], cache["v"], cache.get("k_scale"),
+            cache.get("v_scale"))
         new_cache = {"k": k_cache, "v": v_cache}
+        if k_s is not None:
+            new_cache["k_scale"], new_cache["v_scale"] = k_s, v_s
     else:
         y, upd = attn.gqa_forward(bp["mixer"], cfg, h, positions, causal=bd.causal)
         if mode == "prefill":
             new_cache = {"k": upd.k, "v": upd.v}
     x = x + y
+    if bd.cross:
+        x = _cross_attention(bp, cfg, x, positions, mode, cache, kv_len, enc_out, new_cache)
     if bd.ffn == "mlp":
         x = x + mlp(bp["ffn"], rmsnorm(bp["ln2"], x, cfg.norm_eps))
     elif bd.ffn == "moe":
@@ -228,19 +268,19 @@ def _save_dots(ctx, func, *args, **kwargs):
 
 
 def _train_step(step_params: dict, x, aux, positions, cfg: ModelConfig, g: Group,
-                ssd_scan: ssm_mod.ScanFn):
+                ssd_scan: ssm_mod.ScanFn, enc_out=None):
     """One step of a group in train mode (the body that ``remat``
     recomputes): (x, aux plus each block's aux, in order)."""
     for i, bd in enumerate(g.blocks):
         x, _, a = _apply_block(step_params[f"blk{i}"], cfg, bd, x, positions, "train", None,
-                               None, ssd_scan)
+                               None, ssd_scan, enc_out)
         if bd.ffn == "moe":
             aux = aux + a
     return x, aux
 
 
 def _remat_step(step_params: dict, x, aux, positions, cfg: ModelConfig, g: Group,
-                ssd_scan: ssm_mod.ScanFn, policy: str):
+                ssd_scan: ssm_mod.ScanFn, policy: str, enc_out=None):
     """``_train_step`` under ``torch.utils.checkpoint``: its activations are
     recomputed in the backward pass, but for the products that ``"dots"``
     saves (``"nothing"`` saves none).  The numbers do not depend on the
@@ -250,12 +290,12 @@ def _remat_step(step_params: dict, x, aux, positions, cfg: ModelConfig, g: Group
     context = (functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
                if policy == "dots" else ckpt.noop_context_fn)
     return ckpt.checkpoint(_train_step, step_params, x, aux, positions, cfg, g, ssd_scan,
-                           use_reentrant=False, context_fn=context)
+                           enc_out, use_reentrant=False, context_fn=context)
 
 
 def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
                 cache=None, kv_len=None, ssd_scan: ssm_mod.ScanFn = ops.ssd_scan,
-                remat: bool = False, remat_policy: str = "dots"):
+                remat: bool = False, remat_policy: str = "dots", enc_out=None):
     """Run a group's steps in order.  Returns (x, caches stacked over steps,
     aux): ``aux`` float32, the blocks' MoE losses summed in layer order
     from 0, as JAX's scan carries it.
@@ -266,7 +306,10 @@ def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
     tensors; a Mamba2 block's new states are stacked over the steps (new
     tensors: a float32 model's bfloat16 conv window turns float32, as in
     JAX).  So a hybrid group returns its K/V caches as passed in and fresh
-    SSM states beside them.  Train mode returns no caches;
+    SSM states beside them; an int8 cache's scales and a cross-attention
+    block's ``cross_k``/``cross_v`` come back as passed in too.  ``enc_out``
+    is the encoder's output for the cross-attention blocks of prefill and
+    train mode.  Train mode returns no caches;
     with ``remat`` each step is recomputed in the backward pass
     (``_remat_step``).
     """
@@ -274,9 +317,10 @@ def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
     if mode == "train":
         for s in range(g.steps):
             step_params = _index(gp, s)
-            x, aux = (_remat_step(step_params, x, aux, positions, cfg, g, ssd_scan, remat_policy)
+            x, aux = (_remat_step(step_params, x, aux, positions, cfg, g, ssd_scan, remat_policy,
+                                  enc_out)
                       if remat else
-                      _train_step(step_params, x, aux, positions, cfg, g, ssd_scan))
+                      _train_step(step_params, x, aux, positions, cfg, g, ssd_scan, enc_out))
         return x, None, aux
     per_step = []
     for s in range(g.steps):
@@ -287,7 +331,7 @@ def apply_group(gp: dict, cfg: ModelConfig, g: Group, x, positions, mode: str,
             c_in = None if step_cache is None else step_cache[f"blk{i}"]
             x, new_caches[f"blk{i}"], a = _apply_block(
                 step_params[f"blk{i}"], cfg, bd, x, positions, mode, c_in, kv_len,
-                ssd_scan)
+                ssd_scan, enc_out)
             if bd.ffn == "moe":
                 aux = aux + a
         per_step.append(new_caches)

@@ -46,6 +46,11 @@ def splitmix32(x: torch.Tensor) -> torch.Tensor:
     return to_i32(_splitmix(as_u32(x)))
 
 
+def hash_u32(x: torch.Tensor) -> torch.Tensor:
+    """Hash a 32-bit array elementwise (``splitmix32``); int32 bit pattern."""
+    return splitmix32(x)
+
+
 def hash2_u32_unsigned(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``hash2_u32`` as an int64 tensor of unsigned values in [0, 2**32)."""
     a = as_u32(a)

@@ -1,8 +1,9 @@
 """The port's distributed engine (``repro_torch.core.distributed``) on the
 CPU: spawned ranks over gloo, held bitwise against JAX.
 
-* The 34 committed replays (17 conformance cases x seeds 0, 1) at world 4,
-  all in ONE spawned group (a module fixture), one test per fixture.
+* The 17 committed seed-0 replays at world 4, and the thinned case, all in
+  ONE spawned group (a module fixture), one test per fixture; the seed-1
+  replays spawn their own group in ``test_torch_distributed_s1.py``.
 * World 1, 2 and 4 give the same series, ``wire_bytes`` aside, which must
   equal the ring model at each world.
 * JAX's own ``run_distributed_sim`` at 4 forced host devices: its series,
@@ -18,12 +19,13 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import FIXTURE_CASES, as_numpy, case_seeds, fixture_path
+from torch_parity import FIXTURE_CASES, as_numpy, case_seeds
+from torch_world4 import GROUP_TIMEOUT, assert_series, check_replay_at_world4, world4_group
+from torch_world4 import replay as _replay
 
 from repro_torch.core import workload as wl
 from repro_torch.core.distributed import EngineRun, run_distributed_sim, run_group
-from repro_torch.core.metrics import EMBODIMENT_FIELDS, field_names
-from repro_torch.core.replay import load_replay
+from repro_torch.core.metrics import field_names
 from repro_torch.core.simulator import (
     _delivery_mask_dense,
     _merge_replicate,
@@ -31,20 +33,8 @@ from repro_torch.core.simulator import (
     run_sim,
 )
 
-GROUP_TIMEOUT = 300.0          # seconds for one spawned group
 WORLD_CASES = ("paper_outage", "churn_outage", "fanout_topk")
 THINNED = ("zipf_thinned", 5)  # case, metrics_every
-
-
-def _replay(case, seed=0):
-    return load_replay(fixture_path(case, seed), "cpu")
-
-
-def _assert_series(got, want: dict, label: str, skip=EMBODIMENT_FIELDS):
-    for f in field_names():
-        if f not in skip:
-            np.testing.assert_array_equal(np.asarray(getattr(got, f)), want[f],
-                                          err_msg=f"{label}: TickMetrics.{f}")
 
 
 def _series_dict(series) -> dict:
@@ -62,19 +52,12 @@ def ring_wire_bytes(cfg, p: int) -> float:
 
 @pytest.fixture(scope="module")
 def world4():
-    """Every committed replay, and the thinned case, at world 4: one group."""
-    keys, runs = [], []
-    for seed in (0, 1):
-        for case in FIXTURE_CASES:
-            cfg, draws, _ = _replay(case, seed)
-            keys.append((case, seed))
-            runs.append(EngineRun("distributed", cfg, len(draws), draws=draws))
+    """Every committed seed-0 replay, and the thinned case, at world 4: one
+    group."""
     case, k = THINNED
     cfg, draws, _ = _replay(case)
-    keys.append("thinned")
-    runs.append(EngineRun("distributed", cfg, len(draws), metrics_every=k, draws=draws))
-    return dict(zip(keys, run_group(runs, world=4, backend="gloo", device="cpu",
-                                    timeout=GROUP_TIMEOUT)))
+    return world4_group(0, {"thinned": EngineRun("distributed", cfg, len(draws),
+                                                 metrics_every=k, draws=draws)})
 
 
 @pytest.fixture(scope="module")
@@ -89,17 +72,9 @@ def other_worlds():
     return out
 
 
-@pytest.mark.parametrize("case, seed", case_seeds(FIXTURE_CASES))
+@pytest.mark.parametrize("case, seed", [p for p in case_seeds(FIXTURE_CASES) if p.values[1] == 0])
 def test_fixture_replays_bitwise_at_world4(world4, case, seed):
-    cfg, _, expected = _replay(case, seed)
-    res = world4[case, seed]
-    _assert_series(res.series, expected, f"{case}/seed{seed}")
-    assert res.state.caches.tags.shape[0] == cfg.n_nodes
-    # Four ranks timed their loops; on the CPU no kernel launched and no
-    # device memory is reported.
-    assert len(res.host_s) == 4 and all(s > 0 for s in res.host_s)
-    assert all(sum(launch.values()) == 0 for launch in res.launches)
-    assert res.peak_bytes == [None] * 4
+    check_replay_at_world4(world4[case, seed], case, seed)
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])
@@ -107,8 +82,8 @@ def test_fixture_replays_bitwise_at_world4(world4, case, seed):
 def test_worlds_agree_and_wire_bytes_follow_the_ring_model(world4, other_worlds, case, world):
     cfg, _, expected = _replay(case)
     res = world4[case, 0] if world == 4 else other_worlds[case, world]
-    _assert_series(res.series, _series_dict(world4[case, 0].series), f"{case}/world{world}")
-    _assert_series(res.series, expected, f"{case}/world{world} vs JAX")
+    assert_series(res.series, _series_dict(world4[case, 0].series), f"{case}/world{world}")
+    assert_series(res.series, expected, f"{case}/world{world} vs JAX")
     np.testing.assert_array_equal(res.series.wire_bytes.numpy(),
                                   np.full(len(expected["reads"]), ring_wire_bytes(cfg, world),
                                           np.float32))
@@ -148,7 +123,7 @@ def test_matches_jax_distributed_engine(world4, jax_distributed, case):
     res = world4[case, 0]
     want = {k.split("metrics.", 1)[1]: v for k, v in jax_distributed.items()
             if k.startswith(f"{case}/metrics.")}
-    _assert_series(res.series, want, f"{case} vs JAX distributed", skip=())
+    assert_series(res.series, want, f"{case} vs JAX distributed", skip=())
     for f in dataclasses.fields(res.state.caches):
         jx = jax_distributed[f"{case}/caches.{f.name}"]
         np.testing.assert_array_equal(as_numpy(getattr(res.state.caches, f.name), jx), jx,
@@ -161,7 +136,7 @@ def test_thinned_series_matches_the_fused_engine(world4):
     _, fused = run_sim(cfg, len(draws), device="cpu", draws=draws, metrics_every=k)
     got = world4["thinned"].series
     assert got.reads.shape == (len(draws) // k,)
-    _assert_series(got, _series_dict(fused), f"{case} thinned by {k}")
+    assert_series(got, _series_dict(fused), f"{case} thinned by {k}")
 
 
 def test_bad_world_backend_and_metrics_window_raise():

@@ -11,39 +11,18 @@ loss-coupled ratios within epsilons (the tier's ``SHARDED_CASES`` rows for
 the city runs; 0.01 for the quickstart's three ratios, at least 5x the
 deltas measured at seed 0).  The weights of ``serve_paged`` and ``train_lm`` come
 from ``torch.Generator``, so their tokens and losses are not JAX's; their
-counts, schedules and the page manager's stats are.
+counts, schedules and the page manager's stats are.  ``train_lm`` is held in
+``test_torch_examples_train.py``, so the test workers run the two side by
+side.
 """
-import contextlib
-import io
 import re
-import runpy
-import sys
-from pathlib import Path
 
 import pytest
+import torch_threads  # noqa: F401  (sizes this worker's torch thread pool)
+from torch_examples import jax_example as _jax_example
+from torch_examples import port_example as _port_example
 
-from repro_torch.examples import cityscale_cache_sim, quickstart, serve_paged, train_lm
-
-ROOT = Path(__file__).resolve().parents[1]
-
-
-def _jax_example(name: str, args: list[str]) -> list[str]:
-    """Standard output lines of ``examples/<name>.py`` run with ``args``."""
-    out, argv = io.StringIO(), sys.argv
-    sys.argv = [name] + args
-    try:
-        with contextlib.redirect_stdout(out):
-            runpy.run_path(str(ROOT / "examples" / f"{name}.py"), run_name="__main__")
-    finally:
-        sys.argv = argv
-    return out.getvalue().splitlines()
-
-
-def _port_example(module, args: list[str]) -> list[str]:
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        module.main(args + ["--device", "cpu"])
-    return out.getvalue().splitlines()
+from repro_torch.examples import cityscale_cache_sim, quickstart, serve_paged
 
 
 def _value(lines: list[str], label: str) -> float:
@@ -144,21 +123,3 @@ def test_serve_paged_prints_what_jax_prints():
 
     assert untimed(got) == untimed(want)
     assert "prefill reused: 4/4" in got[1] and got[2].endswith("True")
-
-
-def test_train_lm_prints_what_jax_prints(tmp_path):
-    """10 steps with a fault at step 5: the same steps listed with the
-    same learning rates, and the same closing line but for the losses."""
-    args = ["--steps", "10", "--fault-at", "5", "--seq", "32", "--batch", "4"]
-    want = _jax_example("train_lm", args + ["--ckpt-dir", str(tmp_path / "jax")])
-    got = _port_example(train_lm, args + ["--ckpt-dir", str(tmp_path / "port")])
-
-    def steps(lines):
-        return [(m.group(1), m.group(2)) for x in lines
-                if (m := re.match(r"\s+step\s+(\d+)\s+loss [\d.]+\s+lr (\S+)", x))]
-
-    assert steps(got) == steps(want) and len(steps(got)) == 10
-    assert "train-demo-10m: 10 steps" in got
-    tail = "survived injected fault at step 5 via ckpt restart"
-    assert got[-1].endswith(tail) and want[-1].endswith(tail)
-    assert re.match(r"loss [\d.]+ -> [\d.]+ \((improved|NO IMPROVEMENT)\); ", got[-1])

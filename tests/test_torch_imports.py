@@ -1,11 +1,16 @@
-"""Package rules of the port: no JAX, nothing of the JAX package, and a
-counted wrapper for every CUDA kernel."""
+"""Package rules of the port: no JAX, nothing of the JAX package, every name
+that the JAX package's ``core``, ``utils``, ``models`` and ``serving``
+export, and a counted wrapper for every CUDA kernel."""
 import ast
+import importlib
 import os
 import re
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+import torch_threads  # noqa: F401  (sizes this worker's torch thread pool)
 
 from repro_torch.kernels import build, ops
 
@@ -30,7 +35,7 @@ LATE_MODULES = ("core/distributed.py", "core/sharded.py", "core/workload.py",
                 "launch/train.py", "models/moe.py", "examples/quickstart.py",
                 "examples/cityscale_cache_sim.py", "examples/serve_paged.py",
                 "examples/train_lm.py", "configs/jamba_1_5_large_398b.py",
-                "configs/internvl2_2b.py")
+                "configs/internvl2_2b.py", "configs/seamless_m4t_medium.py")
 
 
 def test_port_never_imports_jax_or_the_jax_package():
@@ -44,21 +49,40 @@ def test_port_never_imports_jax_or_the_jax_package():
 
 
 def test_importing_the_port_loads_no_jax():
-    """Every module of the port imported in a fresh interpreter: neither
-    JAX nor the JAX package is loaded."""
+    """Every module of the port imported in a fresh interpreter, packages
+    (their ``__init__.py`` re-exports) included: neither JAX nor the JAX
+    package is loaded, and no kernel is built."""
     modules = sorted(
-        ".".join(f.relative_to(ROOT / "src").with_suffix("").parts)
-        for f in (ROOT / "src" / "repro_torch").rglob("*.py") if f.name != "__init__.py")
+        ".".join(f.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
+        for f in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert {"repro_torch.core", "repro_torch.models", "repro_torch.serving"} <= set(modules)
     assert "repro_torch.models.ssm" in modules and "repro_torch.models.replay" in modules
     for late in LATE_MODULES:
         assert "repro_torch." + late[:-3].replace("/", ".") in modules, late
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
+            "from repro_torch.kernels import build\n"
+            "assert not build._LOADED, build._LOADED\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("package", ["core", "utils", "models", "serving"])
+def test_every_exported_name_imports_from_the_port(package):
+    """Every name in ``repro.<package>.__all__`` imports from
+    ``repro_torch.<package>``, which exports the same names, each the port's
+    own object."""
+    names = importlib.import_module(f"repro.{package}").__all__
+    port = importlib.import_module(f"repro_torch.{package}")
+    assert sorted(port.__all__) == sorted(names)
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, missing
+    for n in names:   # ``SCENARIOS`` is a dict: no module
+        assert getattr(getattr(port, n), "__module__", "repro_torch.").startswith(
+            "repro_torch."), n
 
 
 def test_every_cuda_kernel_has_a_counted_wrapper():

@@ -14,18 +14,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sizes this worker's torch thread pool)
 
 from repro import config as jconfig
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro.models import params as jparams_mod
+from repro.models import stack as jstack
 from repro_torch import config as tconfig
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
 from repro_torch.models.params import init_params, param_count, params_from_numpy
-from repro_torch.models.stack import BlockDef, _block_defs
+from repro_torch.models.stack import _block_defs, plan_groups
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 
@@ -254,16 +256,39 @@ def test_prefill_and_decode_step_match_jax():
         np.asarray(jcache[0]["blk0"]["k"]).view(np.int16))
 
 
-def test_blocks_the_port_cannot_run_raise():
-    """The cross-attention decoder block and int8 K/V raise; the hybrid's
-    SSM + MLP and SSM + MoE blocks are ported (``test_torch_hybrid.py``)."""
-    _, tcfg = _smoke()
-    jamba = tconfig.get_smoke_arch("jamba_1_5_large_398b")
-    assert {"mixer", "ffn"} <= set(_block_defs(jamba, BlockDef("ssm", "mlp"), torch.float32))
-    assert {"mixer", "ffn"} <= set(_block_defs(jamba, BlockDef("ssm", "moe"), torch.float32))
-    with pytest.raises(NotImplementedError):
-        _block_defs(tcfg, BlockDef("attn", "mlp", cross=True), torch.float32)
-    cache = torch.zeros((1, 4, 1, 16), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tattn.gqa_decode({}, tcfg, torch.zeros(1, 1, 64), torch.zeros(1, dtype=torch.int32),
-                         cache, cache)
+def test_every_block_kind_of_every_arch_builds_with_jax_shapes():
+    """Every block of every ``ARCH_IDS`` smoke config (the encoder's and the
+    decoder's, cross-attention and every mixer and FFN kind) builds, each
+    leaf of JAX's shape and logical axes; so does the whole model's tree."""
+    kinds = set()
+    for arch in tconfig.ARCH_IDS:
+        jcfg = jconfig.get_smoke_arch(arch)
+        tcfg = tconfig.get_smoke_arch(arch)
+        enc, dec = plan_groups(tcfg)
+        assert [[dataclasses.asdict(g) for g in gs] for gs in (enc, dec)] == [
+            [dataclasses.asdict(g) for g in gs] for gs in jstack.plan_groups(jcfg)], arch
+        for g in enc + dec:
+            for bd in g.blocks:
+                kinds.add((bd.mixer, bd.ffn, bd.causal, bd.cross))
+                want = jstack._block_defs(jcfg, jstack.BlockDef(**dataclasses.asdict(bd)),
+                                          jnp.float32)
+                got = _block_defs(tcfg, bd, torch.float32)
+                assert _shapes(got) == _shapes(want), (arch, bd)
+        assert _shapes(tmodel.model_param_defs(tcfg)) == _shapes(
+            jmodel.model_param_defs(jcfg)), arch
+    assert {("attn", "mlp", False, False), ("attn", "mlp", True, True), ("mla", "moe", True, False),
+            ("ssm", "none", True, False), ("ssm", "moe", True, False)} <= kinds
+
+
+def _shapes(defs) -> dict:
+    """``{path: (shape, logical axes)}`` of a ParamDef tree of either package."""
+    out = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                out["/".join(prefix + (k,))] = (tuple(v.shape), tuple(v.axes))
+    walk(defs, ())
+    return out

@@ -31,6 +31,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sizes this worker's torch thread pool)
+
 from repro import config as jconfig
 from repro.models import attention as jattn
 from repro.models import model as jmodel

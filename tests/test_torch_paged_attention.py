@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sizes this worker's torch thread pool)
 
 from repro.kernels import ref as jref
 from repro.kernels.paged_attention import paged_attention_pallas

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (sizes this worker's torch thread pool)
 
 from repro.ckpt import checkpoint as jckpt
 from repro.config import get_smoke_arch as jsmoke

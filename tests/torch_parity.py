@@ -21,10 +21,15 @@ Not a test module: it imports both packages, which only tests may do.
   ``moe_fixture``/``write_moe_fixture`` the MoE ones (``jax_model_run``:
   DeepSeek-V2-Lite's and Qwen3-MoE's smoke configs on ``seeded_params``
   weights), ``model_fixture``/``write_model_fixture`` the hybrid (Jamba's
-  smoke config) and VLM (InternVL2's, with patches) ones in the same
-  format; ``train_fixture``/``write_train_fixture`` the training ones
-  (``jax_train_run``: three steps of JAX's ``make_train_step``).
+  smoke config), VLM (InternVL2's, with patches) and encoder-decoder
+  (SeamlessM4T's, with frames) ones in the same format;
+  ``train_fixture``/``write_train_fixture`` the training ones
+  (``jax_train_run``: three steps of JAX's ``make_train_step``; Seamless's
+  too).
 * ``jax_flat_params``/``nested`` move parameter trees between the layouts.
+
+Importing it also sizes each test worker's torch thread pool
+(``torch_threads``).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+import torch_threads  # noqa: F401  (sizes this worker's torch thread pool)
 
 from repro.core import metrics as jmet
 from repro.core import simulator as jsim
@@ -510,12 +516,13 @@ def _jax_caches(caches) -> dict:
 
 
 def jax_model_run(jcfg, jparams, tokens: np.ndarray, steps: int,
-                  patches: np.ndarray | None = None) -> dict:
-    """JAX's ``prefill`` of ``tokens`` (after ``patches``, where given),
-    its sequence caches (K/V, MLA latent) zero-padded to the prompt plus
-    ``steps`` in their own dtype, then ``steps`` greedy ``decode_step``s
-    from position P+S: one case of ``repro_torch.models.replay``'s model
-    fixtures."""
+                  patches: np.ndarray | None = None, frames: np.ndarray | None = None) -> dict:
+    """JAX's ``prefill`` of ``tokens`` (after ``patches``, where given;
+    an encoder-decoder's encoder over ``frames``, given in the model's
+    dtype), its sequence caches (K/V, MLA latent) zero-padded to the
+    prompt plus ``steps`` in their own dtype (the cross K/V as they are),
+    then ``steps`` greedy ``decode_step``s from position P+S: one case of
+    ``repro_torch.models.replay``'s model fixtures."""
     from repro.models.model import decode_step, prefill
 
     batch = {"tokens": jnp.asarray(tokens)}
@@ -523,6 +530,9 @@ def jax_model_run(jcfg, jparams, tokens: np.ndarray, steps: int,
     if patches is not None:
         batch["patches"] = jnp.asarray(patches)
         case["patches"] = patches
+    if frames is not None:
+        batch["frames"] = jnp.asarray(frames, jcfg.dtype)
+        case["frames"] = frames
     logits, caches = prefill(jparams, jcfg, batch)
     case.update({"prefill_logits": np.asarray(logits[:, 0], np.float32), **_jax_caches(caches)})
     pad = [(0, 0), (0, 0), (0, steps)]
@@ -577,9 +587,10 @@ def write_moe_fixture(arch: str) -> str:
     return path
 
 
-MODEL_FIXTURES = {   # arch -> its committed hybrid or VLM fixture
+MODEL_FIXTURES = {   # arch -> its committed hybrid, VLM or encoder-decoder fixture
     "jamba_1_5_large_398b": os.path.join(FIXTURE_DIR, "hybrid_jamba_1_5_large_398b_smoke.npz"),
     "internvl2_2b": os.path.join(FIXTURE_DIR, "vlm_internvl2_2b_smoke.npz"),
+    "seamless_m4t_medium": os.path.join(FIXTURE_DIR, "encdec_seamless_m4t_medium_smoke.npz"),
 }
 
 
@@ -592,12 +603,13 @@ def vlm_patches(jcfg, batch: int, seed: int) -> np.ndarray:
 
 @functools.cache
 def model_fixture(arch: str) -> tuple:
-    """(JAX config, cases) of the committed fixture of ``arch`` (Jamba's
-    or InternVL2's smoke config) in ``moe_fixture``'s way: bfloat16 weights
-    from ``seeded_params``, 2 prompts of 24 tokens (InternVL2's after
-    ``vlm_patches``), 6 greedy decode steps; case ``bfloat16`` runs the
-    weights as they are, case ``float32`` the float32 model on the same
-    weights widened.  Cached: the returned arrays are shared."""
+    """(JAX config, cases) of the committed fixture of ``arch`` (Jamba's,
+    InternVL2's or SeamlessM4T's smoke config) in ``moe_fixture``'s way:
+    bfloat16 weights from ``seeded_params``, 2 prompts of 24 tokens
+    (InternVL2's after ``vlm_patches``; SeamlessM4T's encoder over frames
+    drawn as ``vlm_patches`` are), 6 greedy decode steps; case ``bfloat16``
+    runs the weights as they are, case ``float32`` the float32 model on the
+    same weights widened.  Cached: the returned arrays are shared."""
     from repro.config import get_smoke_arch
 
     jcfg = get_smoke_arch(arch)
@@ -605,11 +617,12 @@ def model_fixture(arch: str) -> tuple:
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, jcfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).astype(np.int32)
     patches = vlm_patches(jcfg, MOE_BATCH, 1) if jcfg.family == "vlm" else None
+    frames = vlm_patches(jcfg, MOE_BATCH, 1) if jcfg.family == "encdec" else None
     wide = jax.tree.map(lambda a: a.astype(jnp.float32), jparams)
     cases = {
-        "bfloat16": jax_model_run(jcfg, jparams, tokens, MOE_STEPS, patches),
+        "bfloat16": jax_model_run(jcfg, jparams, tokens, MOE_STEPS, patches, frames),
         "float32": jax_model_run(dataclasses.replace(jcfg, dtype="float32"), wide, tokens,
-                                 MOE_STEPS, patches),
+                                 MOE_STEPS, patches, frames),
     }
     return jcfg, cases
 
@@ -645,9 +658,9 @@ def nested(flat: dict) -> dict:
 
 TRAIN_FIXTURES = {arch: os.path.join(FIXTURE_DIR, f"train_{arch}_smoke.npz")
                   for arch in ("granite_8b", "mamba2_370m", "deepseek_v2_lite_16b",
-                               "jamba_1_5_large_398b")}
+                               "jamba_1_5_large_398b", "seamless_m4t_medium")}
 # Training fixtures on ``seeded_params`` weights (the file holds the seed).
-SEEDED_TRAIN = ("deepseek_v2_lite_16b", "jamba_1_5_large_398b")
+SEEDED_TRAIN = ("deepseek_v2_lite_16b", "jamba_1_5_large_398b", "seamless_m4t_medium")
 
 
 def jax_train_run(jcfg, jparams) -> dict:
@@ -664,6 +677,9 @@ def jax_train_run(jcfg, jparams) -> dict:
     run = FIXTURE_RUN
     hyper = TrainHyper(**run["hyper"])
     batches = [synthetic_batch(jcfg, run["seq"], run["batch"], i) for i in range(run["steps"])]
+    for b in batches:   # frames in the model's dtype (JAX's scan refuses others)
+        if "frames" in b:
+            b["frames"] = jnp.asarray(b["frames"], jcfg.dtype)
     grads = jax.grad(lambda p: loss_fn(p, jcfg, {k: jnp.asarray(v) for k, v in batches[0].items()},
                                        remat=hyper.remat, remat_policy=hyper.remat_policy)[0])(jparams)
     step_fn = jax.jit(make_train_step(jcfg, hyper))
