@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the FLIC fog cache, its serving engine,
 its Mamba2, MoE, hybrid, VLM and encoder-decoder models, its int8 K/V
-decode, its trainer and its example drivers on one NVIDIA card.
+decode, its trainer, its examples, its sharding rules, dry-run and
+roofline on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
@@ -222,7 +223,31 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
     on them and 32 on the bfloat16 caches; ms a step and cache bytes of
     each, the step-1 logit gap and the argmax agreement, the caches still
     int8; then one step of each at context 32,768 (batch 4, caches filled
-    from seeded rows), timed.
+    from seeded rows), timed;
+30. ``shard``: the sharding rules on the card: a world-1 NCCL group in
+    this process, a (1, 1) ``("data", "model")`` ``DeviceMesh`` on
+    ``cuda:0``; Mamba2-370M at full width with the ``train`` phase's config
+    and batch (4 x 2,048, remat ``"dots"``), 2 steps with parameters,
+    moments and batches as DTensors under the ``train`` plan and 1 prefill
+    under ``prefill``, each against the same steps without rules: loss,
+    gradient norm, updated parameters and prefill logits bitwise equal;
+    ``ssd_scan`` 96 and ``ssd_scan_bwd`` 48 launches a step (48 the
+    prefill), each through ``local_map`` (``ssm._chunked_on_ranks``);
+31. ``dryrun``: two production cells of ``repro_torch.launch.dryrun``
+    (``DRYRUN_CELLS``: one train, one decode, 16x16) as rank 0 of a fake
+    group of 256, in CPU worker processes started with the ``train``
+    phases (bound by the card, so the worker loads no phase whose time the
+    host bounds) and waited for when they end (so their fake groups never
+    meet the NCCL one); each cell's summary, every status ``ok``;
+32. ``roofline``: the ``train``, ``train_dense``, ``ssm`` prefill and
+    ``kv_int8`` long-context bfloat16 steps, their times as those phases
+    measured them (no step runs again), read against
+    ``analysis.roofline.roofline_row`` at one device with the H100's
+    constants; FLOPs and the peak bytes from a fake run of each step's own
+    cell (``launch.specs.build_cell`` without a mesh) in the same workers;
+    ``mfu``, the roofline share (the largest term over the measured time;
+    above 1.05 fails) and the fake run's peak beside
+    ``torch.cuda.max_memory_allocated``.
 
 After each engine cell (``dense``, ``city``, ``replicate``, ``poisson``,
 ``trace``) a ``profile`` line checks that a tick never synchronises the host
@@ -2448,7 +2473,7 @@ def ssm_phase(torch, device) -> dict:
          profile_decode_step=prof_decode, profile_prefill=prof_prefill,
          tokens_row0=krun["tokens"][0].tolist())
     return dict(launches=launches["ssd_scan"], scan_args=shadow["args"],
-                published_args=published_args)
+                published_args=published_args, prefill_ms_median=prefill_med, peak=peak)
 
 
 def ssm_replay_phase(torch, device) -> None:
@@ -2697,7 +2722,8 @@ def train_phase(torch, device) -> dict:
                                    grad_max_abs_diff=max(grad_diff.values())),
          profile_step=prof)
     return dict(launches=launches, captured=[record["g_prev"], record["g_final"], record["prev"],
-                                             record["decay"], record["with_init"]])
+                                             record["decay"], record["with_init"]],
+                step_ms_median=med, peak=peak)
 
 
 def scan_bwd_work(g_prev, g_final, prev, decay, with_init) -> tuple[int, int, dict]:
@@ -2837,7 +2863,7 @@ def train_dense_phase(torch, device) -> dict:
                     params_max_abs_diff_vs_uninterrupted=max(diff.values()),
                     params_equal=all(v == 0.0 for v in diff.values()),
                     leaves_differing=sorted(k for k, v in diff.items() if v)))
-    return dict(params_equal=all(v == 0.0 for v in diff.values()))
+    return dict(params_equal=all(v == 0.0 for v in diff.values()), step_ms_median=med, peak=peak)
 
 
 def train_replay_phase(torch, device) -> None:
@@ -3657,13 +3683,16 @@ def kv_int8_phase(torch, device) -> dict:
         tok = first
         pos = torch.full((KV_INT8_BATCH,), long_seq - 1, dtype=torch.int32, device=device)
         times = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(4):   # a warm-up, then three timed steps
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             decode_step(params, cfg, tok, pos, long_caches)
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
-        long_ms[kind] = dict(ms=statistics.median(times[1:]), cache_bytes=cache_bytes(long_caches))
+        long_ms[kind] = dict(ms=statistics.median(times[1:]), cache_bytes=cache_bytes(long_caches),
+                             peak_memory_bytes=torch.cuda.max_memory_allocated())
         del long_caches, blk
         torch.cuda.empty_cache()
     emit("kv_int8", arch=cfg.name, batch=KV_INT8_BATCH, prompt_len=KV_INT8_PROMPT_LEN,
@@ -3720,6 +3749,266 @@ def examples_phase(torch) -> None:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(ckpt, ignore_errors=True)
+
+
+SHARD_STEPS = 2
+SHARD_PLANS = ("train", "prefill")
+# The dry-run's production cells on the card's host (16x16, rank 0 of a fake
+# group of 256): one train cell and one decode cell.
+DRYRUN_CELLS = (("deepseek_v2_lite_16b", "train_4k", "train_ep"), ("granite_8b", "decode_32k", None))
+DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
+ROOFLINE_SHARE_MAX = 1.05   # no card beats its roofline: more means a wrong constant or count
+
+
+def roofline_steps() -> dict:
+    """The four steps the roofline phase reads: name -> (config, shape of
+    the step's own batch and length, train hyper or None, plan)."""
+    from repro_torch.config import SHAPES, ShapeConfig, get_arch
+    from repro_torch.train import TrainHyper
+
+    hyper = TrainHyper(total_steps=TRAIN_STEPS, **TRAIN_LR)
+    long_seq = SHAPES[KV_INT8_LONG].seq_len
+    return {
+        "train": (get_arch(TRAIN_ARCH), ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                  hyper, "train"),
+        "train_dense": (dataclasses.replace(get_arch(DENSE_ARCH), num_layers=DENSE_LAYERS),
+                        ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), hyper, "train"),
+        "ssm_prefill": (get_arch(SSM_ARCH),
+                        ShapeConfig("prefill", SSM_PROMPT_LEN, SSM_BATCH, "prefill"), None,
+                        "prefill"),
+        "kv_int8_bf16_long": (get_arch(KV_INT8_ARCH),
+                              ShapeConfig(KV_INT8_LONG, long_seq, KV_INT8_BATCH, "decode"), None,
+                              "decode"),
+    }
+
+
+def cost_worker(out_path: str, part: int) -> None:
+    """The CPU work of the ``dryrun`` and ``roofline`` phases, in a process
+    of its own (``start_cost_workers``): part 0 runs the first of the
+    ``DRYRUN_CELLS`` (the train cell, the longest) as rank 0 of a fake
+    group; part 1 the others, then a fake one-device run of each roofline
+    step's cell.  Writes ``{"dryrun": [...], "roofline": {...}, "seconds":
+    {...}, "worker_s": its own seconds}`` to ``out_path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import build_cell
+
+    t_start = time.perf_counter()
+    out: dict = {"dryrun": [], "roofline": {}, "seconds": {}}
+    for arch, shape, plan in DRYRUN_CELLS[:1] if part == 0 else DRYRUN_CELLS[1:]:
+        out["dryrun"].append(dryrun.run_cell(arch, shape, False, str(DRYRUN_OUT), force=True,
+                                             plan=plan))
+    for name, (cfg, shape, hyper, plan) in roofline_steps().items() if part == 1 else ():
+        t0 = time.perf_counter()
+        res = dryrun.run_fake_step(build_cell(cfg, shape, None, plan=plan, hyper=hyper), None,
+                                   None)
+        out["roofline"][name] = res
+        out["seconds"][name] = time.perf_counter() - t0
+    out["worker_s"] = time.perf_counter() - t_start
+    Path(out_path).write_text(json.dumps(out))
+
+
+def start_cost_workers() -> list:
+    """``cost_worker``'s two parts in child interpreters (one torch thread
+    each), started together at the ``train`` phases, which are bound by the
+    card, so that the CPU work overlaps no phase whose time the host
+    bounds; their fake process groups live and die there.  Returns
+    [(process, output path)]."""
+    import atexit
+
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+    workers = []
+    for part in (0, 1):
+        path = DRYRUN_OUT / f"cost_worker{part}.json"
+        path.unlink(missing_ok=True)
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                f"chip_smoke.cost_worker({str(path)!r}, {part})")
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(lambda proc=proc: proc.poll() is None and proc.kill())
+        workers.append((proc, path))
+    return workers
+
+
+def cost_worker_result(workers: list, timeout_s: float = 900) -> dict:
+    """Wait for the workers; their JSONs merged (``worker_s`` per part), and
+    how long the wait took."""
+    t0 = time.perf_counter()
+    out: dict = {"dryrun": [], "roofline": {}, "seconds": {}, "worker_s": []}
+    for proc, path in workers:
+        log, _ = proc.communicate(timeout=timeout_s)
+        if proc.returncode != 0:
+            raise AssertionError(f"a cost worker exited {proc.returncode}:\n{log[-4000:]}")
+        part = json.loads(path.read_text())
+        out["dryrun"] += part["dryrun"]
+        out["roofline"].update(part["roofline"])
+        out["seconds"].update(part["seconds"])
+        out["worker_s"].append(part["worker_s"])
+    out["waited_s"] = time.perf_counter() - t0
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def shard_phase(torch, device) -> dict:
+    """The ``train`` phase's Mamba2-370M step under the ``train`` plan, and
+    its prefill under ``prefill``, on a (1, 1) mesh of a world-1 NCCL group
+    in this process (destroyed at the end): 2 steps with parameters,
+    moments and batches as DTensors, then 1 prefill, each held bitwise
+    against the same steps without rules; ``ssd_scan``/``ssd_scan_bwd``
+    launches a step (and the prefill's) and the calls of the chunk scan's
+    ``local_map`` region counted on the sharded run."""
+    import torch.distributed as dist
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import place_tree
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.model import init_model, model_axes, prefill
+    from repro_torch.optim import adamw_init
+    from repro_torch.shard import PLANS, use_rules
+    from repro_torch.train import TrainHyper, make_train_step
+    from repro_torch.utils.trees import tree_flatten_with_paths
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    hyper = TrainHyper(total_steps=TRAIN_STEPS, **TRAIN_LR)
+    params = init_model(cfg, torch.Generator().manual_seed(0), device)
+    batches = [train_batch(torch, cfg, i, device) for i in range(SHARD_STEPS)]
+    step_fn = make_train_step(cfg, hyper)
+    p, o, plain = params, adamw_init(params), []
+    for i, b in enumerate(batches):
+        p, o, m = step_fn(p, o, b, i)
+        plain.append(m)
+    plain_params = dict(tree_flatten_with_paths(p))
+    del o
+    tokens = batches[0]["tokens"]
+    plain_logits, _ = prefill(params, cfg, {"tokens": tokens})
+
+    if device.type == "cuda":
+        torch.cuda.set_device(device.index or 0)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    regions = {"n": 0}
+    on_ranks = ssm_mod._chunked_on_ranks
+
+    def counted(*args):
+        regions["n"] += 1
+        return on_ranks(*args)
+
+    ssm_mod._chunked_on_ranks = counted
+    try:
+        mesh = make_host_mesh(model=1)
+        train_plan = PLANS["train"]
+        dp = place_tree(params, model_axes(cfg), mesh, train_plan)
+        do = adamw_init(dp)
+        per_step, step_ms, sharded = [], [], []
+        with use_rules(mesh, train_plan):
+            for i, b in enumerate(batches):
+                db = place_tree(b, {k: ("batch", "seq") for k in b}, mesh, train_plan)
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                regions["n"] = 0
+                t0 = time.perf_counter()
+                dp, do, m = step_fn(dp, do, db, i)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                per_step.append(dict({k: v for k, v in ops.LAUNCHES.items() if v},
+                                     local_map_regions=regions["n"]))
+                sharded.append({k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                                for k, v in m.items()})
+        dparams0 = place_tree(params, model_axes(cfg), mesh, PLANS["prefill"])
+        with use_rules(mesh, "prefill"):
+            ops.reset_launches()
+            regions["n"] = 0
+            dlogits, _ = prefill(dparams0, cfg, {"tokens": place_tree(
+                {"tokens": tokens}, {"tokens": ("batch", "seq")}, mesh, PLANS["prefill"])[
+                    "tokens"]})
+            torch.cuda.synchronize()
+            prefill_launches = dict({k: v for k, v in ops.LAUNCHES.items() if v},
+                                    local_map_regions=regions["n"])
+            dlogits = dlogits.full_tensor()
+        got_params = {k: v.full_tensor() for k, v in tree_flatten_with_paths(dp)}
+    finally:
+        ssm_mod._chunked_on_ranks = on_ranks
+        dist.destroy_process_group()
+    L = cfg.num_layers
+    want = {"ssd_scan": 2 * L, "ssd_scan_bwd": L, "local_map_regions": 2 * L}
+    if any(s != want for s in per_step):
+        raise AssertionError(f"shard: expected launches {want} a step (remat: the forward "
+                             f"twice a layer), got {per_step}")
+    if prefill_launches != {"ssd_scan": L, "local_map_regions": L}:
+        raise AssertionError(f"shard: the prefill launched {prefill_launches}")
+    diffs = {}
+    for i, (a, b) in enumerate(zip(sharded, plain)):
+        for k in ("loss", "grad_norm"):
+            diffs[f"step{i}/{k}"] = float((a[k].float() - b[k].float()).abs())
+    for k, v in got_params.items():
+        diffs[f"param/{k}"] = float((v.float() - plain_params[k].float()).abs().max())
+    diffs["prefill_logits"] = float((dlogits - plain_logits).abs().max())
+    unequal = {k: v for k, v in diffs.items() if v != 0.0}
+    if unequal:
+        raise AssertionError(f"shard: the sharded steps differ from the plain steps: {unequal}")
+    emit("shard", arch=cfg.name, mesh={"data": 1, "model": 1}, backend=dist.Backend.NCCL
+         if device.type == "cuda" else dist.Backend.GLOO,
+         plans=list(SHARD_PLANS), batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=SHARD_STEPS,
+         remat_policy=hyper.remat_policy, launches_per_step=per_step,
+         prefill_launches=prefill_launches, bitwise_equal=sorted(diffs),
+         losses=[float(m["loss"]) for m in sharded], step_ms=step_ms,
+         seconds=time.perf_counter() - t_phase)
+    return dict(launches={"ssd_scan": sum(s["ssd_scan"] for s in per_step)
+                          + prefill_launches["ssd_scan"],
+                          "ssd_scan_bwd": sum(s["ssd_scan_bwd"] for s in per_step)})
+
+
+def dryrun_phase(costs: dict) -> None:
+    """The worker's production cells: each cell's summary; every status ``ok``."""
+    for rec in costs["dryrun"]:
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun: {rec['cell']} failed: {rec.get('error')}\n"
+                                 f"{rec.get('traceback', '')[-2000:]}")
+        emit("dryrun", cell=rec["cell"], plan=rec["plan"], mesh=rec["mesh"],
+             microbatches=rec.get("microbatches"), memory=rec["memory"],
+             flops=rec["cost"]["flops"], collectives=rec["collectives"], wall_s=rec["wall_s"])
+    emit("dryrun_worker", worker_s=costs["worker_s"], waited_s=costs["waited_s"],
+         roofline_fake_s=costs["seconds"])
+
+
+def roofline_phase(torch, costs: dict, measured: dict) -> list:
+    """Each step's measured time against its roofline at one device:
+    ``measured[name] = (ms, torch.cuda.max_memory_allocated)``."""
+    from repro_torch.analysis.roofline import HW, roofline_row
+
+    rows = []
+    for name, (cfg, shape, hyper, _) in roofline_steps().items():
+        res = costs["roofline"][name]
+        ms, peak = measured[name]
+        row = roofline_row(cfg, shape, 1, {"dot_flops": res["cost"]["flops"], "coll_bytes": 0.0},
+                           microbatches=hyper.microbatches if hyper else 1,
+                           cell=f"{name}:{cfg.name}:{shape.global_batch}x{shape.seq_len}")
+        seconds = ms / 1e3
+        share = max(row.compute_s, row.memory_s, row.collective_s) / seconds
+        out = dict(row.as_dict(), measured_ms=ms, mfu=row.model_flops / (seconds * HW["peak_flops"]),
+                   roofline_share=share, fake_peak_memory_in_bytes=res["memory"][
+                       "peak_memory_in_bytes"], max_memory_allocated=peak,
+                   fake_argument_bytes=res["memory"]["argument_size_in_bytes"])
+        emit("roofline", step=name, **out)
+        if not share <= ROOFLINE_SHARE_MAX:
+            raise AssertionError(f"roofline: {name} reads {share} of its roofline: a wrong "
+                                 "constant or count")
+        rows.append(out)
+    return rows
 
 
 def main() -> None:
@@ -3840,14 +4129,16 @@ def main() -> None:
     elapsed("ssm")
 
     torch.cuda.empty_cache()
+    workers = start_cost_workers()   # CPU-only: the dryrun and roofline phases' fake runs
     train = train_phase(torch, device)
     bres = scan_bwd_kernel_phase(torch, device, train.pop("captured"),
                                  ssm.pop("published_args"), cycles_per_ms)
     emit("kernels", kernel="ssd_scan_bwd", spin_cycles_per_ms=cycles_per_ms, **bres)
     torch.cuda.empty_cache()
-    train_dense_phase(torch, device)
+    dense = train_dense_phase(torch, device)
     torch.cuda.empty_cache()
     train_replay_phase(torch, device)
+    costs = cost_worker_result(workers)   # done before the host-bound phases that follow
     elapsed("train")
 
     torch.cuda.empty_cache()
@@ -3874,9 +4165,22 @@ def main() -> None:
     torch.cuda.empty_cache()
     model_replay_phase(torch, device, "encdec_replay",
                        {"encdec_seamless_m4t_medium_smoke.npz": ENCDEC_TOL})
-    kv_int8_phase(torch, device)
+    kv_int8 = kv_int8_phase(torch, device)
     torch.cuda.empty_cache()
     elapsed("encdec and kv_int8")
+
+    t_new = time.perf_counter()
+    shard = shard_phase(torch, device)
+    torch.cuda.empty_cache()
+    dryrun_phase(costs)
+    long_bf16 = kv_int8["long_context_step"]["bf16"]
+    roofline_phase(torch, costs, {
+        "train": (train["step_ms_median"], train["peak"]),
+        "train_dense": (dense["step_ms_median"], dense["peak"]),
+        "ssm_prefill": (ssm["prefill_ms_median"], ssm["peak"]),
+        "kv_int8_bf16_long": (long_bf16["ms"], long_bf16["peak_memory_bytes"])})
+    emit("new_phases", seconds=time.perf_counter() - t_new + costs["waited_s"])
+    elapsed("shard, dryrun and roofline")
 
     # Headline case of each FLIC kernel: the first main-path case of the
     # kernels phase.  Launches: the main path's kernel runs of the five
@@ -3908,15 +4212,17 @@ def main() -> None:
     })
     # flic_merge: its entry's run on the dense cell's catch-up; ssd_scan: the
     # Mamba2 prefill's launches, the train run's (8 steps, remat: the
-    # forward twice a layer) and the Jamba prefill's; ssd_scan_bwd: the
-    # train run's.  Error: the largest over all cases (ssd_scan_bwd:
+    # forward twice a layer), the Jamba prefill's and the shard phase's
+    # sharded steps and prefill; ssd_scan_bwd: the train run's and the
+    # shard phase's.  Error: the largest over all cases (ssd_scan_bwd:
     # g_decay's; g_states and g_init are bitwise).
     sres["jamba_prefill_layer0"] = hybrid["scan_case"]
     for name, launches, cases in (
             ("flic_merge", merge["launches"], mres),
-            ("ssd_scan", ssm["launches"] + train["launches"]["ssd_scan"] + hybrid["launches"],
-             sres),
-            ("ssd_scan_bwd", train["launches"]["ssd_scan_bwd"], bres)):
+            ("ssd_scan", ssm["launches"] + train["launches"]["ssd_scan"] + hybrid["launches"]
+             + shard["launches"]["ssd_scan"], sres),
+            ("ssd_scan_bwd", train["launches"]["ssd_scan_bwd"] + shard["launches"]["ssd_scan_bwd"],
+             bres)):
         head = next(iter(cases.values()))
         lines.append({
             "name": name, "route": "cuda",

@@ -462,11 +462,48 @@ def ssd_scan(states, chunk_decay, init=None):
     gradient is required (grad mode on and an input that requires one) the
     call goes through ``SSDScan``, whose backward is ``ssd_scan_bwd``; the
     outputs are the same.
+
+    DTensor inputs (under a plan of ``repro_torch.shard``) run under
+    ``local_map``: each rank scans its own batch rows and heads, laid out
+    as the plan's ``batch`` and ``act_ssm`` say (``_scan_placements``).
+    The recurrence is independent per head, so sharding heads is exact.
     """
+    if _is_dtensor(states):
+        from repro_torch.shard.partition import on_ranks
+
+        pl = _scan_placements(states)
+        return on_ranks(ssd_scan, out_placements=(pl["states"], pl["init"]),
+                        in_placements=(pl["states"], pl["decay"],
+                                       pl["init"] if init is not None else None))(
+            states, chunk_decay, init)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (states, chunk_decay, init)):
         return SSDScan.apply(states, chunk_decay, init)
     return _ssd_scan_fwd(states, chunk_decay, init)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _scan_placements(states):
+    """The placements of the scan's tensors under the active plan:
+    batch rows as ``batch``, heads as ``act_ssm``, fitted to the shapes;
+    keys ``states`` (B,C,H,P,N), ``decay`` (B,C,H) and ``init`` (B,H,P,N)."""
+    from repro_torch.shard.partition import current_rules, placements_for
+
+    mesh, plan = current_rules()
+    if mesh is None:
+        raise ValueError("DTensor scan inputs need a plan: run under shard.use_rules")
+    b, c, h, p, n = states.shape
+    return {
+        "states": placements_for(("batch", None, "act_ssm", None, None), (b, c, h, p, n), mesh,
+                                 plan),
+        "decay": placements_for(("batch", None, "act_ssm"), (b, c, h), mesh, plan),
+        "init": placements_for(("batch", "act_ssm", None, None), (b, h, p, n), mesh, plan),
+    }
 
 
 def _ssd_scan_fwd(states, chunk_decay, init):
@@ -496,8 +533,17 @@ def ssd_scan_bwd(g_prev, g_final, prev, chunk_decay, with_init: bool = True):
     without ``with_init``) in float32.  On CUDA ``g_states`` and ``g_init``
     equal the plain version bitwise; ``g_decay``'s (P, N) sums are taken in
     the kernel's fixed order (``ref.ssd_scan_bwd_decay_tol``), the same
-    bits on every call.
+    bits on every call.  DTensor inputs run under ``local_map`` with
+    ``ssd_scan``'s placements.
     """
+    if _is_dtensor(g_prev):
+        from repro_torch.shard.partition import on_ranks
+
+        pl = _scan_placements(g_prev)
+        return on_ranks(ssd_scan_bwd, out_placements=(pl["states"], pl["decay"],
+                                                       pl["init"] if with_init else None),
+                        in_placements=(pl["states"], pl["init"], pl["states"], pl["decay"], None))(
+            g_prev, g_final, prev, chunk_decay, with_init)
     if not _on_cuda(g_prev):
         return ref.ssd_scan_bwd_ref(g_prev, g_final, prev, chunk_decay, with_init)
     b, c, h, p, n = g_prev.shape

@@ -30,9 +30,13 @@ def inv_sqrt(d: int) -> float:
     """``1 / sqrt(d)`` as JAX computes it, both steps in float32, returned
     as a Python float (exactly that float32 value): multiplying a float32
     tensor by it rounds as JAX does, and no device tensor is made from the
-    host, which would make the host wait for the card."""
-    one = torch.ones((), dtype=torch.float32)
-    return float(one / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
+    host, which would make the host wait for the card.  Computed on the CPU
+    with every dispatch mode set aside (a fake tensor mode has no values)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        one = torch.ones((), dtype=torch.float32)
+        return float(one / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,10 @@ plain PyTorch einsums in float32, as JAX writes them (not
 * ``decode_attention`` — one query token against a contiguous cache.
 
 The FLIC-paged decode path is ``repro_torch.serving.serve_step``; it reads
-K/V through the ``paged_attention`` kernel.  Without a mesh the JAX
-package's KV-head expansion is 1, so the port has none.  MLA
+K/V through the ``paged_attention`` kernel.  Under a plan with the
+``kv_expand`` flag, ``project_qkv`` repeats K/V heads r-fold where
+``kv_heads`` does not divide the ``model`` axis (``_kv_expansion``, as in
+JAX); with no plan active r is 1.  MLA
 (``mla_defs``, ``mla_forward``, ``mla_decode``) keeps a compressed latent
 cache ``(B, S, r+dr)``; its decode absorbs ``W_uk`` and ``W_uv`` into the
 query and output.  An int8 contiguous cache holds each K/V row
@@ -30,6 +32,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.ref import inv_sqrt
 from repro_torch.models.layers import apply_rope, f32, rmsnorm, rmsnorm_defs
 from repro_torch.models.params import ParamDef
+from repro_torch.shard import shard_act
+from repro_torch.shard.partition import (current_rules, grad_placements, mesh_axes, on_ranks,
+                                         placements_for, shard_index, sharded)
 
 FLASH_THRESHOLD = 1024
 Q_BLOCK = 512
@@ -59,11 +64,72 @@ def gqa_defs(cfg: ModelConfig, dtype) -> dict:
     return d
 
 
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)``: per-head projections.  On a
+    DTensor under a plan, under ``local_map``: each rank projects its batch
+    rows onto its heads (``batch``, ``act_heads``, fitted to the head
+    count), reading ``w``'s heads as the output lays them out.  DTensor's
+    own product could split the flattened heads x head_dim dim so that a
+    head count smaller than the mesh dim no longer unflattens."""
+    if not sharded(x):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, plan = current_rules()
+    (b, s, _), (_, h, k) = x.shape, w.shape
+    op = placements_for(("batch", "seq", "act_heads", None), (b, s, h, k), mesh, plan)
+    xp = placements_for(("batch", "seq", None), tuple(x.shape), mesh, plan)
+    wp = tuple(Shard(1) if pl == Shard(2) else Replicate() for pl in op)
+    return on_ranks(lambda xl, wl: torch.einsum("bsd,dhk->bshk", xl, wl),
+                    out_placements=list(op), in_placements=(xp, wp),
+                    in_grad_placements=(grad_placements(xp, op), grad_placements(wp, op)))(x, w)
+
+
+def project_out(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", out, w)``: the output projection.  On a
+    DTensor under a plan, under ``local_map``: each rank contracts its own
+    heads (as ``out`` lies: ``batch``, ``act_heads``), and the result is
+    the sum of the ranks' shares where the heads are split (``Partial``)."""
+    if not sharded(out):
+        return torch.einsum("bshk,hkd->bsd", out, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, plan = current_rules()
+    op = placements_for(("batch", "seq", "act_heads", None), tuple(out.shape), mesh, plan)
+    wp = tuple(Shard(0) if pl == Shard(2) else Replicate() for pl in op)
+    yp = tuple(Partial() if pl == Shard(2) else pl for pl in op)
+    return on_ranks(lambda ol, wl: torch.einsum("bshk,hkd->bsd", ol, wl),
+                    out_placements=list(yp), in_placements=(op, wp),
+                    in_grad_placements=(op, grad_placements(wp, op)))(out, w)
+
+
+def _kv_expansion(cfg: ModelConfig) -> int:
+    """KV-head replication factor for TP alignment (plan flag 'kv_expand').
+
+    When kv_heads doesn't divide the TP axis but a small replication factor
+    r makes (kv_heads*r) % tp == 0 (and still divides num_heads), replicate
+    KV r-fold so q AND k/v shard over the same head partition.  Returns 1
+    when inapplicable or with no rules active.
+    """
+    mesh, plan = current_rules()
+    if mesh is None or plan is None or not plan.has("kv_expand"):
+        return 1
+    tp = mesh_axes(mesh).get("model", 1)
+    hkv, hq = cfg.num_kv_heads, cfg.num_heads
+    if hkv % tp == 0 or hq % tp != 0:
+        return 1
+    for r in (2, 4, 8, 16):
+        if hq % (hkv * r) == 0 and (hkv * r) % tp == 0:
+            return r
+    return 1
+
+
 def project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
-    """q (B,S,Hq,D), k and v (B,S,Hkv,D), with RoPE on q and k."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["w_q"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["w_k"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["w_v"])
+    """q (B,S,Hq,D), k and v (B,S,r*Hkv,D) (r = ``_kv_expansion``), with
+    RoPE on q and k."""
+    q = project_heads(x, p["w_q"])
+    k = project_heads(x, p["w_k"])
+    v = project_heads(x, p["w_v"])
     if cfg.qkv_bias:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
     if cfg.use_qk_norm:
@@ -71,6 +137,13 @@ def project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Ten
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    r = _kv_expansion(cfg)
+    if r > 1:
+        k = torch.repeat_interleave(k, r, dim=2)
+        v = torch.repeat_interleave(v, r, dim=2)
+    q = shard_act(q, "batch", "seq", "act_heads", None)
+    k = shard_act(k, "batch", "seq", "act_heads", None)
+    v = shard_act(v, "batch", "seq", "act_heads", None)
     return q, k, v
 
 
@@ -162,6 +235,74 @@ def decode_attention(q, k_cache, v_cache, kv_len) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Under a plan: the score paths on each rank's heads
+# ---------------------------------------------------------------------------
+
+def attend(fn, q, k, v, *args, **kwargs):
+    """``fn(q, k, v, *args, **kwargs)`` (a score path); on DTensors under a
+    plan, under ``local_map`` on each rank's batch rows and query heads
+    (the plan's ``batch`` and ``act_heads``; attention is independent per
+    head).  Where K/V heads are not split as the query heads are, a rank
+    takes the K/V heads of its own query heads' groups, and their gradient
+    is the sum of the ranks' shares."""
+    if not sharded(q):
+        return fn(q, k, v, *args, **kwargs)
+
+    mesh, plan = current_rules()
+    axes = ("batch", None, "act_heads", None)
+    qp, kp, vp = (placements_for(axes, tuple(t.shape), mesh, plan) for t in (q, k, v))
+    hq, hkv = q.shape[2], k.shape[2]
+
+    def local(ql, kl, vl):
+        if kl.shape[2] == hkv and ql.shape[2] < hq:
+            g, hl = hq // hkv, ql.shape[2]
+            if g % hl and hl % g:
+                raise ValueError(f"{hl} query heads a rank do not tile groups of {g}")
+            start = shard_index(mesh, qp, 2) * hl // g
+            kl, vl = (t[:, :, start:start + max(1, hl // g)] for t in (kl, vl))
+        return fn(ql, kl, vl, *args, **kwargs)
+
+    return on_ranks(local, out_placements=list(qp), in_placements=(qp, kp, vp),
+                    in_grad_placements=(qp, grad_placements(kp, qp),
+                                        grad_placements(vp, qp)))(q, k, v)
+
+
+def write_rows(pos: torch.Tensor, *writes: tuple[torch.Tensor, torch.Tensor]) -> None:
+    """``cache[b, pos[b]] = rows[b]`` for every batch row b of each
+    (cache, rows) pair, IN PLACE.  On DTensor caches under a plan (batch as
+    ``kv_batch``, positions as ``kv_seq``), each rank writes the rows whose
+    position lies in its own range of positions, under ``local_map``."""
+    if not sharded(writes[0][0]):
+        bidx = torch.arange(writes[0][0].shape[0], device=pos.device)
+        pos_l = pos.long()
+        for cache, rows in writes:
+            cache[bidx, pos_l] = rows.to(cache.dtype)
+        return
+    for cache, rows in writes:
+        _write_rows_on_ranks(cache, pos, rows)
+
+
+def _write_rows_on_ranks(cache, pos, rows) -> None:
+    mesh, plan = current_rules()
+    cp = placements_for(("kv_batch", "kv_seq") + (None,) * (cache.ndim - 2), tuple(cache.shape),
+                        mesh, plan)
+    bp = placements_for(("kv_batch",), (cache.shape[0],), mesh, plan)
+    rp = placements_for(("kv_batch",) + (None,) * (rows.ndim - 1), tuple(rows.shape), mesh, plan)
+
+    def local(cl, pl, rl):
+        n = cl.shape[1]
+        at = pl.long() - shard_index(mesh, cp, 1) * n
+        mine = (at >= 0) & (at < n)
+        at = at.clamp(0, n - 1)
+        bidx = torch.arange(cl.shape[0], device=cl.device)
+        keep = mine.view(-1, *([1] * (rl.ndim - 1)))
+        cl[bidx, at] = torch.where(keep, rl.to(cl.dtype), cl[bidx, at])
+        return cl
+
+    on_ranks(local, out_placements=list(cp), in_placements=(cp, bp, rp))(cache, pos, rows)
+
+
+# ---------------------------------------------------------------------------
 # GQA block entry points
 # ---------------------------------------------------------------------------
 
@@ -175,12 +316,10 @@ class KVUpdate:
 def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                 causal: bool = True) -> tuple[torch.Tensor, KVUpdate]:
     q, k, v = project_qkv(p, cfg, x, positions)
-    if x.shape[1] > FLASH_THRESHOLD:
-        out = flash_attention(q, k, v, causal)
-    else:
-        out = full_attention(q, k, v, causal)
-    y = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
-    return y, KVUpdate(k=k, v=v)
+    out = attend(flash_attention if x.shape[1] > FLASH_THRESHOLD else full_attention, q, k, v,
+                 causal)
+    y = project_out(out, p["w_o"])
+    return shard_act(y, "batch", "seq", "embed"), KVUpdate(k=k, v=v)
 
 
 def quantize_kv_row(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -211,25 +350,21 @@ def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
     passed in (scales ``None`` for a bfloat16 or float32 cache).
     """
     q, k, v = project_qkv(p, cfg, x, pos[:, None])
-    bidx = torch.arange(x.shape[0], device=x.device)
-    pos_l = pos.long()
     if k_cache.dtype == torch.int8:
         if k_scale is None or v_scale is None:
             raise ValueError("an int8 K/V cache needs its k_scale and v_scale")
         kq, ks = quantize_kv_row(k[:, 0])
         vq, vs = quantize_kv_row(v[:, 0])
-        k_cache[bidx, pos_l] = kq
-        v_cache[bidx, pos_l] = vq
-        k_scale[bidx, pos_l] = ks
-        v_scale[bidx, pos_l] = vs
+        write_rows(pos, (k_cache, kq), (v_cache, vq), (k_scale, ks), (v_scale, vs))
         k_full, v_full = dequantize_kv(k_cache, k_scale), dequantize_kv(v_cache, v_scale)
     else:
-        k_cache[bidx, pos_l] = k[:, 0].to(k_cache.dtype)
-        v_cache[bidx, pos_l] = v[:, 0].to(v_cache.dtype)
+        write_rows(pos, (k_cache, k[:, 0]), (v_cache, v[:, 0]))
         k_full, v_full = k_cache, v_cache
-    out = decode_attention(q, k_full, v_full, pos + 1)
-    y = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
-    return y, k_cache, v_cache, k_scale, v_scale
+    # under a plan the query heads are gathered: the scores then split as
+    # the cache's positions do, and the softmax and the PV sum reduce them
+    out = decode_attention(shard_act(q, "batch", "seq", None, None), k_full, v_full, pos + 1)
+    y = project_out(out, p["w_o"])
+    return shard_act(y, "batch", "seq", "embed"), k_cache, v_cache, k_scale, v_scale
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +396,7 @@ def _mla_latent(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Ten
 def _mla_query(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     """(q_nope (B,S,h,dn), q_rope (B,S,h,dr)), RoPE on the second."""
     dn = cfg.nope_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["w_q"])
+    q = project_heads(x, p["w_q"])
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -270,17 +405,15 @@ def mla_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """Training/prefill MLA. Returns (y, latent_cache (B,S,r+dr))."""
     q_nope, q_rope = _mla_query(p, cfg, x, positions)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
+    k_nope = project_heads(c_kv, p["w_uk"])
+    v = project_heads(c_kv, p["w_uv"])
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], cfg.rope_head_dim)],
                   dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
-    if x.shape[1] > FLASH_THRESHOLD:
-        out = flash_attention(qf, k, v, causal=True)
-    else:
-        out = full_attention(qf, k, v, causal=True)
-    y = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
-    return y, torch.cat([c_kv, k_rope], dim=-1)
+    out = attend(flash_attention if x.shape[1] > FLASH_THRESHOLD else full_attention, qf, k, v,
+                 causal=True)
+    y = project_out(out, p["w_o"])
+    return shard_act(y, "batch", "seq", "embed"), torch.cat([c_kv, k_rope], dim=-1)
 
 
 def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
@@ -295,9 +428,7 @@ def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
     """
     r = cfg.kv_lora_rank
     c_new, kr_new = _mla_latent(p, cfg, x, pos[:, None])
-    bidx = torch.arange(x.shape[0], device=x.device)
-    latent_cache[bidx, pos.long()] = torch.cat([c_new, kr_new], dim=-1)[:, 0].to(
-        latent_cache.dtype)
+    write_rows(pos, (latent_cache, torch.cat([c_new, kr_new], dim=-1)[:, 0]))
 
     q_nope, q_rope = _mla_query(p, cfg, x, pos[:, None])
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])      # absorb W_uk: (B,1,h,r)
@@ -310,5 +441,5 @@ def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bshk,bkr->bshr", w, f32(c_kv))           # (B,1,h,r)
     out = torch.einsum("bshr,rhk->bshk", o_lat, f32(p["w_uv"])).to(x.dtype)
-    y = torch.einsum("bshk,hkd->bsd", out, p["w_o"])
-    return y, latent_cache
+    y = project_out(out, p["w_o"])
+    return shard_act(y, "batch", "seq", "embed"), latent_cache

@@ -3,10 +3,11 @@
 Port of ``repro.models.layers``: plain functions over weight dicts, with
 JAX's casts (float32 inside ``rmsnorm``, ``gated_rmsnorm`` and
 ``apply_rope``; back to the input dtype after, the gate's for
-``gated_rmsnorm``).  ``einsum`` and ``matmul`` promote a bfloat16 and a
+``gated_rmsnorm``).  ``promote`` and ``matmul`` take a bfloat16 and a
 float32 operand to float32, as JAX's products do (a float32 model's
 cross-attention over bfloat16 cross K/V; ``lm_logits``).  JAX's
-activation-sharding hints have no counterpart.
+activation-sharding hints are ``repro_torch.shard.shard_act`` at the same
+sites: no-ops unless a plan is active (``use_rules``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,9 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.params import ParamDef
+from repro_torch.shard import shard_act
+from repro_torch.shard.partition import (current_rules, grad_placements, on_ranks,
+                                         placements_for, sharded)
 
 
 def f32(x: torch.Tensor) -> torch.Tensor:
@@ -26,10 +30,6 @@ def promote(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tenso
     operands: bfloat16 with float32 is float32, exactly widened)."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt), b.to(dt)
-
-
-def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.einsum(eq, *promote(a, b))
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -97,6 +97,7 @@ def mlp_defs(d_model: int, d_ff: int, dtype) -> dict:
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = shard_act(h, "batch", "seq", "act_ffn")
     return h @ p["w_down"]
 
 
@@ -120,10 +121,27 @@ def embed_defs(cfg: ModelConfig, dtype) -> dict:
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens.long()]
+    if sharded(tokens):
+        return shard_act(_embed_on_ranks(p["tok"], tokens), "batch", "seq", "embed")
+    return shard_act(p["tok"][tokens.long()], "batch", "seq", "embed")
+
+
+def _embed_on_ranks(table, tokens):
+    """The lookup on DTensor tokens under a plan, under ``local_map``: each
+    rank gathers its own tokens' rows from the whole table, whose gradient
+    is the sum of the ranks' shares (a scatter-add that DTensor's own
+    index_put strategy would take on the sharded table)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh, plan = current_rules()
+    tp = placements_for(("batch", "seq"), tuple(tokens.shape), mesh, plan)
+    whole = (Replicate(),) * mesh.ndim
+    return on_ranks(lambda t, idx: t[idx.long()], out_placements=list(tp),
+                    in_placements=(whole, tp),
+                    in_grad_placements=(grad_placements(whole, tp), tp))(table, tokens)
 
 
 def lm_logits(p: dict, x: torch.Tensor, tie: bool) -> torch.Tensor:
     """Logits of hidden states ``x`` through the head (the embedding's
     transpose when ``tie``), in the promoted dtype of the product."""
-    return matmul(x, p["tok"].T if tie else p["head"])
+    return shard_act(matmul(x, p["tok"].T if tie else p["head"]), "batch", "seq", "act_heads")

@@ -48,7 +48,10 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import embed_defs, embed_tokens, f32, rmsnorm, rmsnorm_defs
 from repro_torch.models.params import abstract_params, init_params, logical_axes
 from repro_torch.models.ssm import ScanFn
-from repro_torch.models.stack import apply_group, cache_specs, group_param_defs, plan_groups
+from repro_torch.models.stack import (apply_group, cache_axes, cache_specs, group_param_defs,
+                                      plan_groups)
+from repro_torch.shard import shard_act
+from repro_torch.shard.partition import current_rules, on_ranks, placements_for, sharded
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -93,7 +96,7 @@ def _encode(params, cfg: ModelConfig, frames: torch.Tensor, remat: bool,
     if frames.dtype != _dtype(cfg):
         raise ValueError(f"frames are {frames.dtype}; the {cfg.dtype} model takes "
                          f"{_dtype(cfg)} frames")
-    x = frames
+    x = shard_act(frames, "batch", "seq", "embed")
     b, s = x.shape[:2]
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     for i, g in enumerate(enc_groups):
@@ -142,17 +145,49 @@ def forward(params, cfg: ModelConfig, batch: dict, mode: str = "train",
 
 
 def _lm_head_weight(params, cfg: ModelConfig):
+    """The (d, V) head; under a plan gathered whole on d and split on V as
+    the plan says (the FSDP gather of the weight: DTensor would otherwise
+    gather the rows of every rank's hidden states and compute the whole
+    batch's logits on each rank)."""
     emb = params["embed"]
-    return emb["tok"].T if cfg.tie_embeddings else emb["head"]
+    if cfg.tie_embeddings:
+        return shard_act(emb["tok"].T, None, "vocab")
+    return shard_act(emb["head"], None, "head_vocab")
 
 
 def _chunk_ce(h, labels, mask, w):
     """Sum of one chunk's masked CE and of its mask; logits float32 of the
-    product in the params' dtype."""
-    logits = f32(h @ w)                                         # (B,c,V)
+    product in the params' dtype.  Under a plan the logits are gathered to
+    whole rows of the vocabulary first (the gather of the gold logit and
+    the ``logsumexp`` then run on the rank's batch rows), as GSPMD does
+    where it cannot partition the gather."""
+    logits = shard_act(f32(h @ w), "batch", "seq", None)        # (B,c,V)
+    if sharded(logits):
+        return _ce_on_ranks(logits, labels, mask)
+    return _ce_sums(logits, labels, mask)
+
+
+def _ce_sums(logits, labels, mask):
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def _ce_on_ranks(logits, labels, mask):
+    """``_ce_sums`` on each rank's rows (whole vocabulary rows) under
+    ``local_map``: the sums are the ranks' shares (``Partial``) where the
+    rows are split."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, plan = current_rules()
+    labels, mask = (t if isinstance(t, DTensor) else   # the mask chunked_ce makes
+                    DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                    for t in (labels, mask))
+    lp = tuple(logits.placements)
+    rp = placements_for(("batch", "seq"), tuple(labels.shape), mesh, plan)
+    sums = tuple(Partial() if isinstance(pl, Shard) else pl for pl in lp)
+    return on_ranks(_ce_sums, out_placements=(sums, sums), in_placements=(lp, rp, rp))(
+        logits, labels, mask)
 
 
 def chunked_ce(params, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Tensor,
@@ -221,3 +256,9 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, pos: torch.Tensor
 def decode_cache_specs(cfg: ModelConfig, batch: int, seq: int, enc_seq: int = 0,
                        kv_int8: bool = False) -> list[dict]:
     return cache_specs(cfg, batch, seq, enc_seq, kv_int8)
+
+
+def decode_cache_axes(cfg: ModelConfig, kv_int8: bool = False) -> list[dict]:
+    """The logical axes of ``decode_cache_specs``' tensors, a parallel tree
+    (the second half of JAX's ``decode_cache_specs`` pair)."""
+    return cache_axes(cfg, kv_int8)

@@ -5,8 +5,8 @@ Port of ``repro.models.params``.  A model is a nested dict of ``ParamDef``s;
 the JAX package's parameter tree (as numpy arrays, JAX's layout and key
 names) so that both frameworks run the same weights.  ``abstract_params``
 gives the tree's shapes and dtypes without allocating (``meta`` tensors).
-The logical sharding axes are kept for parity with the JAX definitions
-(``logical_axes``); the port does not shard.
+The logical sharding axes (``logical_axes``) are what a plan of
+``repro_torch.shard`` resolves to DTensor placements.
 """
 from __future__ import annotations
 

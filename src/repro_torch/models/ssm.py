@@ -25,6 +25,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import f32, gated_rmsnorm, rmsnorm_defs
 from repro_torch.models.params import ParamDef
+from repro_torch.shard import shard_act
+from repro_torch.shard.partition import (current_rules, grad_placements, on_ranks,
+                                         placements_for, sharded)
 
 # (states (B,C,H,P,N), chunk_decay (B,C,H), init (B,H,P,N) or None)
 #   -> (prev (B,C,H,P,N), final (B,H,P,N)), all float32
@@ -157,38 +160,122 @@ def ssd_chunked(
     return y[:, :s_orig], final
 
 
-def ssm_forward(
-    p: dict, cfg: ModelConfig, x: torch.Tensor,
-    init_state: Optional[SSMState] = None, ssd_scan: ScanFn = ops.ssd_scan,
-) -> tuple[torch.Tensor, SSMState]:
-    """Full-sequence Mamba2 block. x: (B,S,d_model)."""
-    proj = x @ p["w_in"]
+def _chunked_on_ranks(xh, dt, a, b, c, chunk, init, ssd_scan):
+    """``ssd_chunked`` on DTensors under the active plan: under
+    ``local_map`` on each rank's batch rows (``batch``) and heads
+    (``act_ssm``); the scan is independent per head, so this is exact.  B
+    and C (read by every head) and the decay rates (read by every batch
+    row) take the sum of the ranks' gradient shares."""
+
+    mesh, plan = current_rules()
+    bsz, _, h, p = xh.shape
+
+    def pl(axes, shape):
+        return placements_for(axes, tuple(shape), mesh, plan)
+
+    xp = pl(("batch", None, "act_ssm", None), xh.shape)
+    sp = pl(("batch", "act_ssm", None, None), (bsz, h, p, b.shape[3]))
+    bp = pl(("batch", None, None, None), b.shape)
+
+    def local(xl, dtl, al, bl, cl, il):
+        return ssd_chunked(xl, dtl, al, bl, cl, chunk, il, ssd_scan)
+
+    dp, ap = pl(("batch", None, "act_ssm"), dt.shape), pl(("act_ssm",), a.shape)
+    ip = sp if init is not None else None
+    bg = grad_placements(bp, xp)
+    return on_ranks(local, out_placements=(xp, sp), in_placements=(xp, dp, ap, bp, bp, ip),
+                    in_grad_placements=(xp, dp, grad_placements(ap, xp), bg, bg, ip))(
+        xh, dt, a, b, c, init)
+
+
+def _ssm_inputs(p: dict, cfg: ModelConfig, proj: torch.Tensor):
+    """The mixer from the in-projection ``proj`` = x @ w_in up to the chunk
+    scan: (z, xh (B,S,H,P), dt (B,S,H) softplus'd, b, c (B,S,G,N),
+    conv_state (B,K-1,conv_dim))."""
     z, raw_xbc, dt = _split_proj(cfg, proj)
     x_bc = _causal_conv(p, raw_xbc)
 
-    bsz, s = x.shape[:2]
+    bsz, s = proj.shape[:2]
     di = cfg.ssm_d_inner
     gn = cfg.ssm_ngroups * cfg.ssm_state
     xs = x_bc[..., :di]
     b = x_bc[..., di : di + gn].reshape(bsz, s, cfg.ssm_ngroups, cfg.ssm_state)
     c = x_bc[..., di + gn :].reshape(bsz, s, cfg.ssm_ngroups, cfg.ssm_state)
-
-    h, pd = cfg.ssm_nheads, cfg.ssm_headdim
-    xh = xs.reshape(bsz, s, h, pd)
+    xh = xs.reshape(bsz, s, cfg.ssm_nheads, cfg.ssm_headdim)
     dt = _softplus(f32(dt) + f32(p["dt_bias"]))
-    a = -torch.exp(f32(p["a_log"]))
-
-    init = None if init_state is None else init_state.ssd
-    y, final = ssd_chunked(xh, dt, a, b, c, cfg.ssm_chunk, init, ssd_scan)
-    y = y + f32(p["d_skip"])[None, None, :, None] * f32(xh)
-    y = y.reshape(bsz, s, di).to(x.dtype)
-    y = gated_rmsnorm(p["norm"], y, z, cfg.norm_eps)
-    out = y @ p["w_out"]
-
     # decode conv state = last (K-1) *pre-activation* xBC inputs
-    k = cfg.ssm_conv
-    conv_state = raw_xbc[:, -(k - 1):, :]
-    return out, SSMState(conv=conv_state, ssd=f32(final))
+    conv_state = raw_xbc[:, -(cfg.ssm_conv - 1):, :]
+    return z, xh, dt, b, c, conv_state
+
+
+def _ssm_output(p: dict, cfg: ModelConfig, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The mixer after the chunk scan up to the out-projection: the skip and
+    the gated norm of y (B,S,H,P)."""
+    bsz, s = y.shape[:2]
+    y = y + f32(p["d_skip"])[None, None, :, None] * f32(xh)
+    y = y.reshape(bsz, s, cfg.ssm_d_inner).to(dtype)
+    return gated_rmsnorm(p["norm"], y, z, cfg.norm_eps)
+
+
+def ssm_forward(
+    p: dict, cfg: ModelConfig, x: torch.Tensor,
+    init_state: Optional[SSMState] = None, ssd_scan: ScanFn = ops.ssd_scan,
+) -> tuple[torch.Tensor, SSMState]:
+    """Full-sequence Mamba2 block. x: (B,S,d_model).  On DTensors under a
+    plan: ``_ssm_forward_on_ranks``."""
+    init = None if init_state is None else init_state.ssd
+    if sharded(x):
+        out, conv_state, final = _ssm_forward_on_ranks(p, cfg, x, init, ssd_scan)
+    else:
+        z, xh, dt, b, c, conv_state = _ssm_inputs(p, cfg, x @ p["w_in"])
+        a = -torch.exp(f32(p["a_log"]))
+        y, final = ssd_chunked(xh, dt, a, b, c, cfg.ssm_chunk, init, ssd_scan)
+        out = _ssm_output(p, cfg, y, xh, z, x.dtype) @ p["w_out"]
+    return shard_act(out, "batch", "seq", "embed"), SSMState(conv=conv_state, ssd=f32(final))
+
+
+def _ssm_forward_on_ranks(p: dict, cfg: ModelConfig, x, init, ssd_scan):
+    """``ssm_forward``'s mixer on a DTensor ``x`` under the active plan: the
+    in- and out-projections as DTensor products (split as ``ssm_out`` and
+    ``ssm_in`` say), and between them three ``local_map`` regions: the
+    conv and splits on each rank's batch rows (the projection gathered
+    whole), the chunk scan on its rows and heads (``_chunked_on_ranks``,
+    heads as ``act_ssm`` says), and the skip and the gated norm (over all
+    heads) on its rows.  Returns (out, conv_state, final)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh, plan = current_rules()
+    whole = (Replicate(),) * mesh.ndim
+
+    def rows(ndim: int):   # the batch rows split as the plan says, the rest whole
+        return placements_for(("batch",) + (None,) * (ndim - 1), (x.shape[0],) + (1,) * (ndim - 1),
+                              mesh, plan)
+
+    xp = rows(3)
+    wgrad = grad_placements(whole, xp)   # each rank's rows' share of a weight's gradient
+
+    def inputs_local(projl, conv_w, conv_b, dt_bias):
+        return _ssm_inputs({"conv_w": conv_w, "conv_b": conv_b, "dt_bias": dt_bias}, cfg, projl)
+
+    z, xh, dt, b, c, conv_state = on_ranks(
+        inputs_local, out_placements=(xp, rows(4), rows(3), rows(4), rows(4), xp),
+        in_placements=(xp,) + (whole,) * 3, in_grad_placements=(xp,) + (wgrad,) * 3)(
+        x @ p["w_in"], p["conv_w"], p["conv_b"], p["dt_bias"])
+    xh = shard_act(xh, "batch", "seq", "act_ssm", None)
+    a = -torch.exp(f32(p["a_log"]))
+    y, final = _chunked_on_ranks(xh, dt, a, b, c, cfg.ssm_chunk, init, ssd_scan)
+
+    def output_local(yl, xhl, zl, d_skip, scale):
+        return _ssm_output({"d_skip": d_skip, "norm": {"scale": scale}}, cfg, yl, xhl, zl,
+                           x.dtype)
+
+    hp = rows(4)
+    normed = on_ranks(output_local, out_placements=list(xp),
+                      in_placements=(hp, hp, xp) + (whole,) * 2,
+                      in_grad_placements=(hp, hp, xp) + (wgrad,) * 2)(
+        y, xh, z, p["d_skip"], p["norm"]["scale"])
+    return normed @ p["w_out"], conv_state, final
 
 
 def ssm_decode(

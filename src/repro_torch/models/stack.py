@@ -30,8 +30,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import apply_rope, einsum, mlp, mlp_defs, rmsnorm, rmsnorm_defs
+from repro_torch.models.layers import apply_rope, mlp, mlp_defs, promote, rmsnorm, rmsnorm_defs
 from repro_torch.models.params import stack_defs
+from repro_torch.shard import shard_act
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +168,31 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int, enc_seq: int = 0,
              for i, bd in enumerate(g.blocks)} for g in dec]
 
 
+def _block_cache_axes(bd: BlockDef, kv_int8: bool = False) -> dict:
+    """JAX's logical axes of one block's cache tensors, without ``layers``."""
+    if bd.mixer == "ssm":
+        return {"conv": ("kv_batch", "conv", "ssm_out"),
+                "ssd": ("kv_batch", "ssm_heads", "head_dim", "ssm_state")}
+    if bd.mixer == "mla":
+        return {"latent": ("kv_batch", "kv_seq", "lora")}
+    kv = ("kv_batch", "kv_seq", "kv_heads", "head_dim")
+    out = {"k": kv, "v": kv}
+    if kv_int8:
+        out["k_scale"] = out["v_scale"] = kv[:-1]
+    if bd.cross:
+        out["cross_k"] = out["cross_v"] = kv
+    return out
+
+
+def cache_axes(cfg: ModelConfig, kv_int8: bool = False) -> list[dict]:
+    """The logical axes of every tensor of ``cache_specs``, a tree parallel
+    to it: ``("layers", *axes)`` per tensor (JAX's ``cache_specs`` returns
+    them beside its structs)."""
+    _, dec = plan_groups(cfg)
+    return [{f"blk{i}": {name: ("layers", *a) for name, a in _block_cache_axes(bd, kv_int8).items()}
+             for i, bd in enumerate(g.blocks)} for g in dec]
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -185,19 +211,19 @@ def _cross_attention(bp: dict, cfg: ModelConfig, x, positions, mode: str,
         ck, cv = cache["cross_k"], cache["cross_v"]
     else:
         enc_pos = torch.arange(enc_out.shape[1], dtype=torch.int32, device=x.device)[None]
-        ck = einsum("bsd,dhk->bshk", enc_out, p["w_k"])
-        cv = einsum("bsd,dhk->bshk", enc_out, p["w_v"])
+        ck = attn.project_heads(*promote(enc_out, p["w_k"]))
+        cv = attn.project_heads(*promote(enc_out, p["w_v"]))
         if cfg.qkv_bias:
             ck, cv = ck + p["b_k"], cv + p["b_v"]
         ck = apply_rope(ck, enc_pos, cfg.rope_theta)
     if mode != "train":
         new_cache["cross_k"], new_cache["cross_v"] = ck, cv
-    q = einsum("bsd,dhk->bshk", hc, p["w_q"])
+    q = attn.project_heads(*promote(hc, p["w_q"]))
     if cfg.qkv_bias:
         q = q + p["b_q"]
     q = apply_rope(q, kv_len[:, None] if mode == "decode" else positions, cfg.rope_theta)
-    yc = attn.full_attention(q, ck, cv, causal=False)
-    return x + einsum("bshk,hkd->bsd", yc, p["w_o"])
+    yc = attn.attend(attn.full_attention, q, ck, cv, causal=False)
+    return x + attn.project_out(*promote(yc, p["w_o"]))
 
 
 def _apply_block(bp: dict, cfg: ModelConfig, bd: BlockDef, x, positions, mode: str,
@@ -245,7 +271,10 @@ def _apply_block(bp: dict, cfg: ModelConfig, bd: BlockDef, x, positions, mode: s
     elif bd.ffn == "moe":
         y, aux = moe_mod.moe_forward(bp["ffn"], cfg, rmsnorm(bp["ln2"], x, cfg.norm_eps))
         x = x + y
-    return x, new_cache, aux
+    # under a plan the MLP's down-projection leaves partial sums on the
+    # residual stream (GSPMD reduces them where the next use needs it):
+    # reduce them here, or every later product would run on them whole
+    return shard_act(x, "batch", "seq", "embed"), new_cache, aux
 
 
 def _index(tree, i: int):

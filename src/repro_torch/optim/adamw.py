@@ -28,7 +28,7 @@ class AdamWState:
 
 def adamw_init(params) -> AdamWState:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=F32, device=p.device)
+        return torch.zeros_like(p, dtype=F32)   # a DTensor's keep its placements
 
     device = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),

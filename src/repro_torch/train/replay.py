@@ -26,6 +26,7 @@ the port to ``TRAIN_TOL``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 
@@ -143,9 +144,16 @@ def train_tol(family: str, dtype: str) -> dict:
     return {k: v for k, v in tol.items() if v is not None}
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def flat_numpy(tree) -> dict[str, np.ndarray]:
-    """``{path: float32 or float64 numpy}`` of a tree of tensors."""
-    return {k: v.detach().float().cpu().numpy() for k, v in tree_flatten_with_paths(tree)}
+    """``{path: float32 or float64 numpy}`` of a tree of tensors (a
+    DTensor's whole tensor)."""
+    return {k: _whole(v.detach()).float().cpu().numpy() for k, v in tree_flatten_with_paths(tree)}
 
 
 def encdec_frames(cfg: ModelConfig, case: dict, step: int) -> torch.Tensor:
@@ -160,10 +168,13 @@ def encdec_frames(cfg: ModelConfig, case: dict, step: int) -> torch.Tensor:
 
 
 def replay_train_case(cfg: ModelConfig, tree: dict, dtype: str, case: dict, device,
-                      ssd_scan: ScanFn = ops.ssd_scan) -> dict:
+                      ssd_scan: ScanFn = ops.ssd_scan, mesh=None, plan=None) -> dict:
     """The port's run of one case on ``device``: step 0's gradient, then the
     file's steps through ``make_train_step`` on the file's batches.  Returns
-    numpy arrays under the file's field names."""
+    numpy arrays under the file's field names.  With a ``DeviceMesh`` and a
+    plan (``shard.PLANS`` name), every rank of the mesh's group calls this:
+    the weights and batches are placed as DTensors by the plan and the
+    steps run under ``shard.use_rules``."""
     run = json.loads(str(case["hyper"]))
     hyper = TrainHyper(**run["hyper"])
     params = params_from_numpy(tree, cfg, device)
@@ -171,23 +182,35 @@ def replay_train_case(cfg: ModelConfig, tree: dict, dtype: str, case: dict, devi
     if dtype == "float32":
         params = _widen(params)
     init = flat_numpy(params)
+    rules = contextlib.nullcontext()
+    if mesh is not None:
+        from repro_torch.launch.specs import place_tree
+        from repro_torch.models.model import model_axes
+        from repro_torch.shard import PLANS, use_rules
+
+        params = place_tree(params, model_axes(cfg), mesh, PLANS[plan])
+        rules = use_rules(mesh, plan)
 
     def batch(i):
         out = {k: torch.from_numpy(np.ascontiguousarray(case[k][i])).to(device)
                for k in ("tokens", "labels")}
         if cfg.family == "encdec":
             out["frames"] = encdec_frames(cfg, case, i).to(device)
+        if mesh is not None:
+            out = place_tree(out, {k: ("batch", "seq", "embed")[:v.ndim] for k, v in out.items()},
+                             mesh, PLANS[plan])
         return out
 
-    _, _, grads = grads_of(params, cfg, batch(0), hyper, ssd_scan)
-    g0 = flat_numpy(grads)
-    step_fn = make_train_step(cfg, hyper, ssd_scan)
-    opt = adamw_init(params)
-    metrics = []
-    for i in range(run["steps"]):
-        params, opt, m = step_fn(params, opt, batch(i), i)
-        metrics.append({k: float(v) for k, v in m.items()})
-    post = flat_numpy(params)
+    with rules:
+        _, _, grads = grads_of(params, cfg, batch(0), hyper, ssd_scan)
+        g0 = flat_numpy(grads)
+        step_fn = make_train_step(cfg, hyper, ssd_scan)
+        opt = adamw_init(params)
+        metrics = []
+        for i in range(run["steps"]):
+            params, opt, m = step_fn(params, opt, batch(i), i)
+            metrics.append({k: float(_whole(v)) for k, v in m.items()})
+        post = flat_numpy(params)
     out = {k: np.asarray([m[k] for m in metrics], np.float32)
            for k in ("loss", "grad_norm", "lr")}
     for k in TRACKED[cfg.family]:

@@ -50,26 +50,56 @@ def grads_of(params, cfg: ModelConfig, batch: dict, hyper: TrainHyper,
     return loss.detach(), {k: v.detach() for k, v in met.items()}, tree_unflatten(params, grads)
 
 
+def split_microbatches(batch: dict, n_mb: int) -> list[dict]:
+    """The ``n_mb`` microbatches of ``batch``: rows ``[i*b, (i+1)*b)`` of
+    each tensor (b = B / n_mb), as JAX splits them.  A DTensor batch
+    (sharded on its rows by a plan) is gathered whole once, and each
+    microbatch is laid out again as the batch was: one microbatch's rows
+    lie on some ranks only, and another split of the rows would change the
+    loss (the MoE load-balance term is a product of means over a
+    microbatch, the masked CE a ratio of its sums)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def whole(v):
+        if isinstance(v, DTensor):
+            return v.redistribute(v.device_mesh, (Replicate(),) * v.device_mesh.ndim), v.placements
+        return v, None
+
+    def rows(v, placements, i):
+        b = v.shape[0] // n_mb
+        part = v[i * b:(i + 1) * b]
+        return part if placements is None else part.redistribute(part.device_mesh, placements)
+
+    gathered = {k: whole(v) for k, v in batch.items()}
+    return [{k: rows(v, pl, i) for k, (v, pl) in gathered.items()} for i in range(n_mb)]
+
+
+def accumulated_grads(params, cfg: ModelConfig, batch: dict, hyper: TrainHyper,
+                      ssd_scan: ScanFn = ops.ssd_scan):
+    """(loss, metrics, grads) of one step's batch: ``grads_of`` on the whole
+    batch, or with ``microbatches > 1`` the mean over the microbatches of
+    their losses and gradients (summed in float32, as JAX's accumulation
+    scan does; metrics ``{"ce": loss, "aux": 0}``, as JAX reports them)."""
+    n_mb = hyper.microbatches
+    if n_mb == 1:
+        return grads_of(params, cfg, batch, hyper, ssd_scan)
+    gsum = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
+    lsum = torch.zeros((), dtype=F32, device=tree_leaves(params)[0].device)
+    for mb in split_microbatches(batch, n_mb):
+        loss, _met, g = grads_of(params, cfg, mb, hyper, ssd_scan)
+        gsum = tree_map(torch.add, gsum, g)
+        lsum = lsum + loss
+    grads = tree_map(lambda g: g / n_mb, gsum)
+    loss = lsum / n_mb
+    return loss, {"ce": loss, "aux": torch.zeros((), dtype=F32, device=loss.device)}, grads
+
+
 def make_train_step(cfg: ModelConfig, hyper: TrainHyper, ssd_scan: ScanFn = ops.ssd_scan):
     """Returns train_step(params, opt_state, batch, step) -> (p, o, metrics);
     ``batch`` holds tensors on the params' device, ``metrics`` 0-d tensors."""
 
     def train_step(params, opt_state, batch: dict, step: int):
-        n_mb = hyper.microbatches
-        if n_mb == 1:
-            loss, met, grads = grads_of(params, cfg, batch, hyper, ssd_scan)
-        else:
-            mbs = {k: v.reshape(n_mb, v.shape[0] // n_mb, *v.shape[1:]) for k, v in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params)
-            lsum = torch.zeros((), dtype=F32, device=tree_leaves(params)[0].device)
-            for i in range(n_mb):
-                loss, _met, g = grads_of(params, cfg, {k: v[i] for k, v in mbs.items()}, hyper,
-                                         ssd_scan)
-                gsum = tree_map(torch.add, gsum, g)
-                lsum = lsum + loss
-            grads = tree_map(lambda g: g / n_mb, gsum)
-            loss = lsum / n_mb
-            met = {"ce": loss, "aux": torch.zeros((), dtype=F32, device=loss.device)}
+        loss, met, grads = accumulated_grads(params, cfg, batch, hyper, ssd_scan)
 
         if hyper.int8_grads:
             def q(g):

@@ -35,7 +35,14 @@ LATE_MODULES = ("core/distributed.py", "core/sharded.py", "core/workload.py",
                 "launch/train.py", "models/moe.py", "examples/quickstart.py",
                 "examples/cityscale_cache_sim.py", "examples/serve_paged.py",
                 "examples/train_lm.py", "configs/jamba_1_5_large_398b.py",
-                "configs/internvl2_2b.py", "configs/seamless_m4t_medium.py")
+                "configs/internvl2_2b.py", "configs/seamless_m4t_medium.py",
+                "shard/partition.py", "launch/mesh.py", "launch/specs.py", "launch/dryrun.py",
+                "analysis/roofline.py", "analysis/op_costs.py",
+                "analysis/torch_patches.py")
+# The one module of the JAX package without a counterpart of its own name:
+# the port has no HLO to parse; ``analysis/op_costs.py::step_costs`` counts
+# the same costs as the step runs.
+SUBSTITUTED = {"analysis/hlo_parse.py": "analysis/op_costs.py"}
 
 
 def test_port_never_imports_jax_or_the_jax_package():
@@ -83,6 +90,35 @@ def test_every_exported_name_imports_from_the_port(package):
     for n in names:   # ``SCENARIOS`` is a dict: no module
         assert getattr(getattr(port, n), "__module__", "repro_torch.").startswith(
             "repro_torch."), n
+
+
+@pytest.mark.parametrize("package", ["shard", "analysis"])
+def test_shard_and_analysis_export_jax_names(package):
+    """Every name of ``repro.shard.__all__`` and ``repro.analysis.__all__``
+    imports from the port's package, ``parse_hlo_costs`` as ``step_costs``
+    (the one stated substitution), each the port's own object."""
+    names = [{"parse_hlo_costs": "step_costs"}.get(n, n)
+             for n in importlib.import_module(f"repro.{package}").__all__]
+    port = importlib.import_module(f"repro_torch.{package}")
+    assert sorted(port.__all__) == sorted(names)
+    for n in names:
+        assert getattr(getattr(port, n), "__module__", "repro_torch.").startswith(
+            "repro_torch."), n
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every ``.py`` module of ``src/repro`` has one of the same path in
+    ``src/repro_torch``, but for ``SUBSTITUTED`` and the Pallas kernels,
+    whose counterparts are the CUDA sources ``kernels/csrc/<name>.cu``."""
+    jax_side = {str(f.relative_to(ROOT / "src" / "repro"))
+                for f in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {str(f.relative_to(ROOT / "src" / "repro_torch"))
+            for f in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    cuda = {f"kernels/{name}.py" for name in build.sources()}
+    assert cuda <= jax_side
+    missing = sorted(jax_side - port - set(SUBSTITUTED) - cuda)
+    assert not missing, missing
+    assert set(SUBSTITUTED.values()) <= port and not set(SUBSTITUTED) & port
 
 
 def test_every_cuda_kernel_has_a_counted_wrapper():
