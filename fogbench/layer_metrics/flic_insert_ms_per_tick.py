@@ -1,0 +1,10 @@
+"""The per-tick upsert (``core/flic.py::insert_rows`` ->
+``kernels/ops.py::flic_insert``): its kernel's device ms a tick in the
+traced stretch, by the kernel's name."""
+
+KERNEL_NAME = "flic_insert"
+
+
+def read(view):
+    runs = view.named(KERNEL_NAME)
+    return sum(o.dur for o in runs) / 1e3 / view.ticks if runs else None
