@@ -25,6 +25,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.cache_state import NULL_TAG, CacheLine, CacheState, set_index
+from repro_torch.core.tracing import span
 from repro_torch.kernels import ops, ref
 
 I32 = torch.int32
@@ -301,20 +302,21 @@ def update_rows(caches: CacheState, rows: CacheLine, delivered: torch.Tensor,
     JAX's inline sweep and its oracle are the same winner election, so the
     inline path here is the plain version.
     """
-    n = caches.tags.shape[0]
-    if node_ids is None:
-        node_ids = torch.arange(n, dtype=torch.int32, device=rows.key.device)
-    is_origin = rows.origin[None, :] == node_ids[:, None]
-    live = rows.valid[None, :] & (delivered | is_origin)              # (N, R)
-    fns = kernels(backend)
-    update = ref.flic_update_ref if fns is None else fns[1]
-    data_ts, last_use, data, counts = update(
-        caches.tags, caches.data_ts, caches.valid, caches.last_use, caches.data,
-        _i32(rows.key), _i32(set_index(rows.key, caches.num_sets)),
-        _i32(rows.data_ts), rows.data.contiguous(), live.contiguous(), now,
-    )
-    caches = dataclasses.replace(caches, data_ts=data_ts, last_use=last_use, data=data)
-    return caches, counts.sum(dtype=torch.int32)
+    with span("flic.update"):
+        n = caches.tags.shape[0]
+        if node_ids is None:
+            node_ids = torch.arange(n, dtype=torch.int32, device=rows.key.device)
+        is_origin = rows.origin[None, :] == node_ids[:, None]
+        live = rows.valid[None, :] & (delivered | is_origin)              # (N, R)
+        fns = kernels(backend)
+        update = ref.flic_update_ref if fns is None else fns[1]
+        data_ts, last_use, data, counts = update(
+            caches.tags, caches.data_ts, caches.valid, caches.last_use, caches.data,
+            _i32(rows.key), _i32(set_index(rows.key, caches.num_sets)),
+            _i32(rows.data_ts), rows.data.contiguous(), live.contiguous(), now,
+        )
+        caches = dataclasses.replace(caches, data_ts=data_ts, last_use=last_use, data=data)
+        return caches, counts.sum(dtype=torch.int32)
 
 
 def invalidate_nodes(caches: CacheState, node_mask: torch.Tensor) -> CacheState:

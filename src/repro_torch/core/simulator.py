@@ -52,6 +52,7 @@ from repro_torch.core.flic import (
     vmap_nodes,
 )
 from repro_torch.core.metrics import TickMetrics, windowed_loop
+from repro_torch.core.tracing import span
 
 I32, F32 = torch.int32, torch.float32
 
@@ -391,7 +392,9 @@ def _fma32(x: torch.Tensor, y: float, z: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimState, TickMetrics]:
-    """One tick of the fused engine on the draws of tick ``draws.t``."""
+    """One tick of the fused engine on the draws of tick ``draws.t``.
+
+    Each numbered stage runs inside a ``tick.*`` span (``core/tracing.py``)."""
     n = cfg.n_nodes
     spec = cfg.workload
     t = draws.t
@@ -399,276 +402,288 @@ def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimStat
     dev = state.tick.device
     caches = state.caches
     latest_ts = state.latest_ts
-    store_in = state.store
-    if cfg.outage_schedule:
-        store_in = bs.apply_outage_schedule(store_in, t, cfg.outage_schedule)
 
-    # ---- 0. churn: rejoining nodes cold-start -----------------------------
-    online = plan.online
-    if spec.has_churn:
-        caches = invalidate_nodes(caches, plan.rejoin)
-        n_rejoin = _sum(plan.rejoin)
-    else:
-        n_rejoin = torch.zeros((), dtype=I32, device=dev)
+    # ---- 0. outage schedule; churn: rejoining nodes cold-start -------------
+    with span("tick.start"):
+        store_in = state.store
+        if cfg.outage_schedule:
+            store_in = bs.apply_outage_schedule(store_in, t, cfg.outage_schedule)
+        online = plan.online
+        if spec.has_churn:
+            caches = invalidate_nodes(caches, plan.rejoin)
+            n_rejoin = _sum(plan.rejoin)
+        else:
+            n_rejoin = torch.zeros((), dtype=I32, device=dev)
 
     # ---- 1. the plan's write waves -----------------------------------------
-    rows_waves = [wl.plan_write_rows(cfg, plan, p, t) for p in range(spec.plan_waves)]
-    n_writes = _sum(plan.w_valid)
+    with span("tick.write_rows"):
+        rows_waves = [wl.plan_write_rows(cfg, plan, p, t) for p in range(spec.plan_waves)]
+        n_writes = _sum(plan.w_valid)
 
     # ---- 2. fog broadcast under the loss model -----------------------------
-    nbr = _neighbor_index(cfg, dev)
-    channel = state.channel
-    if cfg.loss_model == "gilbert_elliott":
-        channel = gilbert_elliott_advance(channel, draws.u_ge_up, draws.u_ge_dn)
-    delivered = None
-    if needs_delivery_mask(cfg):
-        delivered = _delivery_mask_dense(cfg, channel, draws.u_deliver, nbr, dev)
-        if spec.has_churn:
-            delivered = delivered & online[:, None]
-    n_coh = torch.zeros((), dtype=I32, device=dev)
-    for rows in rows_waves:
-        if cfg.insert_policy != "directory":
-            caches = _merge_replicate(caches, rows, delivered, t, cfg.probe_backend)
-            continue
-        caches, _ = insert_rows(caches, rows, t, backend=cfg.probe_backend)
-        if spec.mutable:
-            caches, n_coh_p = update_rows(caches, rows, delivered, t,
-                                          backend=cfg.probe_backend)
-            n_coh = n_coh + n_coh_p
-    lan = n_writes.to(F32) * cfg.row_bytes
+    with span("tick.delivery"):
+        nbr = _neighbor_index(cfg, dev)
+        channel = state.channel
+        if cfg.loss_model == "gilbert_elliott":
+            channel = gilbert_elliott_advance(channel, draws.u_ge_up, draws.u_ge_dn)
+        delivered = None
+        if needs_delivery_mask(cfg):
+            delivered = _delivery_mask_dense(cfg, channel, draws.u_deliver, nbr, dev)
+            if spec.has_churn:
+                delivered = delivered & online[:, None]
+    with span("tick.writes"):
+        n_coh = torch.zeros((), dtype=I32, device=dev)
+        for rows in rows_waves:
+            if cfg.insert_policy != "directory":
+                caches = _merge_replicate(caches, rows, delivered, t, cfg.probe_backend)
+                continue
+            caches, _ = insert_rows(caches, rows, t, backend=cfg.probe_backend)
+            if spec.mutable:
+                caches, n_coh_p = update_rows(caches, rows, delivered, t,
+                                              backend=cfg.probe_backend)
+                n_coh = n_coh + n_coh_p
+        lan = n_writes.to(F32) * cfg.row_bytes
 
     # ---- 3. write-behind enqueue -------------------------------------------
-    queue = state.queue
-    if spec.mutable:
-        for p, rows in enumerate(rows_waves):
-            queue, _ = wb.enqueue_keyed(queue, plan.w_kids[p], rows.data_ts,
-                                        rows.origin, plan.w_valid[p])
-            latest_ts = wb.max_drop(
-                latest_ts, torch.where(plan.w_valid[p], plan.w_kids[p], spec.key_universe),
-                rows.data_ts,
-            )
-    else:
-        rows = rows_waves[0]
-        queue, _ = wb.enqueue(queue, rows.key, rows.data_ts, rows.origin, plan.w_valid[0])
+    with span("tick.enqueue"):
+        queue = state.queue
+        if spec.mutable:
+            for p, rows in enumerate(rows_waves):
+                queue, _ = wb.enqueue_keyed(queue, plan.w_kids[p], rows.data_ts,
+                                            rows.origin, plan.w_valid[p])
+                latest_ts = wb.max_drop(
+                    latest_ts, torch.where(plan.w_valid[p], plan.w_kids[p], spec.key_universe),
+                    rows.data_ts,
+                )
+        else:
+            rows = rows_waves[0]
+            queue, _ = wb.enqueue(queue, rows.key, rows.data_ts, rows.origin, plan.w_valid[0])
 
     # ---- 4. reads ------------------------------------------------------------
-    r_keys = plan.r_keys
-    r_slots = plan.slot_ok.shape[0]
-    r_ids = plan.slot_id
-    slot_ok = plan.slot_ok
-    r_gidx = plan.slot_nid.long()
-    keys_q = r_keys[r_gidx]
-    sidx_q = set_index(keys_q, cfg.cache_sets)
-    slots = torch.arange(r_slots, device=dev)
-    w_ids = torch.arange(cfg.cache_ways, dtype=I32, device=dev)
+    with span("tick.probe"):
+        r_keys = plan.r_keys
+        r_slots = plan.slot_ok.shape[0]
+        r_ids = plan.slot_id
+        slot_ok = plan.slot_ok
+        r_gidx = plan.slot_nid.long()
+        keys_q = r_keys[r_gidx]
+        sidx_q = set_index(keys_q, cfg.cache_sets)
+        slots = torch.arange(r_slots, device=dev)
+        w_ids = torch.arange(cfg.cache_ways, dtype=I32, device=dev)
 
-    if nbr is None:
-        # Dense: ONE probe of the R queries against all C caches serves the
-        # local check, the fog query and the LRU touch.
-        hit_cq, way_cq, ts_cq, payload_of = _probe_all_caches(cfg, caches, keys_q, sidx_q)
-        hit_local_slot = hit_cq[r_gidx, slots] & slot_ok
-        need_fog_slot = slot_ok & ~hit_local_slot
-        ts_local_slot = ts_cq[r_gidx, slots]
+        if nbr is None:
+            # Dense: ONE probe of the R queries against all C caches serves the
+            # local check, the fog query and the LRU touch.
+            hit_cq, way_cq, ts_cq, payload_of = _probe_all_caches(cfg, caches, keys_q, sidx_q)
+            hit_local_slot = hit_cq[r_gidx, slots] & slot_ok
+            need_fog_slot = slot_ok & ~hit_local_slot
+            ts_local_slot = ts_cq[r_gidx, slots]
 
-        hit_fog_cq = hit_cq
-        resp_rq = _response_mask_compact(cfg, channel, draws.u_resp, r_gidx)
-        if resp_rq is not None:
-            hit_fog_cq = hit_fog_cq & resp_rq.T
-        if spec.has_churn:
-            hit_fog_cq = hit_fog_cq & online[:, None]
-        hit_fog_cq = hit_fog_cq & need_fog_slot[None, :]
-        ts_fog = torch.where(hit_fog_cq, ts_cq, -1)
+            hit_fog_cq = hit_cq
+            resp_rq = _response_mask_compact(cfg, channel, draws.u_resp, r_gidx)
+            if resp_rq is not None:
+                hit_fog_cq = hit_fog_cq & resp_rq.T
+            if spec.has_churn:
+                hit_fog_cq = hit_fog_cq & online[:, None]
+            hit_fog_cq = hit_fog_cq & need_fog_slot[None, :]
+            ts_fog = torch.where(hit_fog_cq, ts_cq, -1)
 
-        best_c = ts_fog.argmax(dim=0)                              # lowest node id on ties
-        fog_hit_slot = hit_fog_cq.any(dim=0)
-        best_ts_slot = torch.where(fog_hit_slot, ts_fog[best_c, slots], -1)
-        best_payload_slot = payload_of(best_c, slots)
+            best_c = ts_fog.argmax(dim=0)                              # lowest node id on ties
+            fog_hit_slot = hit_fog_cq.any(dim=0)
+            best_ts_slot = torch.where(fog_hit_slot, ts_fog[best_c, slots], -1)
+            best_payload_slot = payload_of(best_c, slots)
 
-        # LRU refresh in one scatter-max along the shared query set indices.
-        touch_cq = hit_fog_cq.index_put(
-            (r_gidx, slots), hit_fog_cq[r_gidx, slots] | hit_local_slot
-        )
-        touch_w = touch_cq[:, :, None] & (w_ids[None, None, :] == way_cq[:, :, None])
-        c = caches.tags.shape[0]
-        caches = dataclasses.replace(
-            caches,
-            last_use=caches.last_use.scatter_reduce(
-                1, sidx_q[None, :, None].expand(c, r_slots, cfg.cache_ways),
-                torch.where(touch_w, t, -1).to(I32), "amax",
-            ),
-        )
-        n_responses = _sum(hit_fog_cq)
-    else:
-        # Fan-out: the reader probes itself (lane 0) and its K ring
-        # neighbours; ties break by lane.
-        cols = torch.cat([r_gidx[:, None], nbr[r_gidx]], dim=1)    # (R, K+1)
-        line_sets = sidx_q[:, None]
-        match_l = caches.valid[cols, line_sets] & (
-            caches.tags[cols, line_sets] == keys_q[:, None, None]
-        )
-        hit_l = match_l.any(dim=-1)
-        way_l = match_l.to(I32).argmax(dim=-1)
-        ts_raw_l = caches.data_ts[cols, line_sets].gather(-1, way_l[..., None])[..., 0]
+            # LRU refresh in one scatter-max along the shared query set indices.
+            touch_cq = hit_fog_cq.index_put(
+                (r_gidx, slots), hit_fog_cq[r_gidx, slots] | hit_local_slot
+            )
+            touch_w = touch_cq[:, :, None] & (w_ids[None, None, :] == way_cq[:, :, None])
+            c = caches.tags.shape[0]
+            caches = dataclasses.replace(
+                caches,
+                last_use=caches.last_use.scatter_reduce(
+                    1, sidx_q[None, :, None].expand(c, r_slots, cfg.cache_ways),
+                    torch.where(touch_w, t, -1).to(I32), "amax",
+                ),
+            )
+            n_responses = _sum(hit_fog_cq)
+        else:
+            # Fan-out: the reader probes itself (lane 0) and its K ring
+            # neighbours; ties break by lane.
+            cols = torch.cat([r_gidx[:, None], nbr[r_gidx]], dim=1)    # (R, K+1)
+            line_sets = sidx_q[:, None]
+            match_l = caches.valid[cols, line_sets] & (
+                caches.tags[cols, line_sets] == keys_q[:, None, None]
+            )
+            hit_l = match_l.any(dim=-1)
+            way_l = match_l.to(I32).argmax(dim=-1)
+            ts_raw_l = caches.data_ts[cols, line_sets].gather(-1, way_l[..., None])[..., 0]
 
-        hit_local_slot = hit_l[:, 0] & slot_ok
-        need_fog_slot = slot_ok & ~hit_local_slot
-        ts_local_slot = torch.where(hit_l[:, 0], ts_raw_l[:, 0], -1)
+            hit_local_slot = hit_l[:, 0] & slot_ok
+            need_fog_slot = slot_ok & ~hit_local_slot
+            ts_local_slot = torch.where(hit_l[:, 0], ts_raw_l[:, 0], -1)
 
-        hit_fog_l = hit_l[:, 1:]
-        resp_l = _response_mask_compact(cfg, channel, draws.u_resp, r_gidx)
-        if resp_l is not None:
-            hit_fog_l = hit_fog_l & resp_l
-        if spec.has_churn:
-            hit_fog_l = hit_fog_l & online[cols[:, 1:]]
-        hit_fog_l = hit_fog_l & need_fog_slot[:, None]
-        ts_fog_l = torch.where(hit_fog_l, ts_raw_l[:, 1:], -1)
+            hit_fog_l = hit_l[:, 1:]
+            resp_l = _response_mask_compact(cfg, channel, draws.u_resp, r_gidx)
+            if resp_l is not None:
+                hit_fog_l = hit_fog_l & resp_l
+            if spec.has_churn:
+                hit_fog_l = hit_fog_l & online[cols[:, 1:]]
+            hit_fog_l = hit_fog_l & need_fog_slot[:, None]
+            ts_fog_l = torch.where(hit_fog_l, ts_raw_l[:, 1:], -1)
 
-        best_lane = ts_fog_l.argmax(dim=1)
-        fog_hit_slot = hit_fog_l.any(dim=1)
-        best_ts_slot = torch.where(fog_hit_slot, ts_fog_l[slots, best_lane], -1)
-        best_payload_slot = caches.data[
-            cols[slots, 1 + best_lane], sidx_q, way_l[slots, 1 + best_lane]
-        ]
+            best_lane = ts_fog_l.argmax(dim=1)
+            fog_hit_slot = hit_fog_l.any(dim=1)
+            best_ts_slot = torch.where(fog_hit_slot, ts_fog_l[slots, best_lane], -1)
+            best_payload_slot = caches.data[
+                cols[slots, 1 + best_lane], sidx_q, way_l[slots, 1 + best_lane]
+            ]
 
-        # LRU refresh: flat scatter-max over the touched lines; untouched
-        # lanes carry INT32_MIN, a no-op under max (JAX drops them).
-        touch_l = torch.cat([hit_local_slot[:, None], hit_fog_l], dim=1)
-        flat = (cols * cfg.cache_sets + sidx_q[:, None]) * cfg.cache_ways + way_l
-        src = torch.where(touch_l, t, torch.iinfo(I32).min).to(I32)
-        caches = dataclasses.replace(
-            caches,
-            last_use=caches.last_use.reshape(-1)
-            .scatter_reduce(0, flat.reshape(-1), src.reshape(-1), "amax")
-            .reshape(caches.last_use.shape),
-        )
-        n_responses = _sum(hit_fog_l)
+            # LRU refresh: flat scatter-max over the touched lines; untouched
+            # lanes carry INT32_MIN, a no-op under max (JAX drops them).
+            touch_l = torch.cat([hit_local_slot[:, None], hit_fog_l], dim=1)
+            flat = (cols * cfg.cache_sets + sidx_q[:, None]) * cfg.cache_ways + way_l
+            src = torch.where(touch_l, t, torch.iinfo(I32).min).to(I32)
+            caches = dataclasses.replace(
+                caches,
+                last_use=caches.last_use.reshape(-1)
+                .scatter_reduce(0, flat.reshape(-1), src.reshape(-1), "amax")
+                .reshape(caches.last_use.shape),
+            )
+            n_responses = _sum(hit_fog_l)
 
-    n_fog_queries = _sum(need_fog_slot)
+        n_fog_queries = _sum(need_fog_slot)
 
     # 4c. writer-buffer forwarding, then the backing store (§VI).
-    healthy = bs.store_healthy(store_in, t)
-    need_store_slot = need_fog_slot & ~fog_hit_slot
-    if spec.mutable:
-        kids_q = plan.r_kids[r_gidx]
-        (queue_hit_slot, store_read_slot, failed_slot, found_slot,
-         served_ts_slot) = _resolve_backstop_keyed(queue, store_in, healthy,
-                                                   need_store_slot, kids_q)
-    else:
-        queue_hit_slot, store_read_slot, failed_slot, found_slot, _ = _resolve_backstop(
-            queue, store_in, healthy, need_store_slot, plan.r_enq_idx[r_gidx]
-        )
-    n_store_reads = _sum(store_read_slot)
-    n_queue_hits = _sum(queue_hit_slot)
-    n_failed = _sum(failed_slot)
-    lan = lan + n_fog_queries * cfg.query_bytes + (n_responses + n_queue_hits) * cfg.row_bytes
-    txn = cfg.store.read_txn_bytes(store_in.drained_total)
-    wan_rx = n_store_reads.to(F32) * txn
-    store = dataclasses.replace(store_in, api_calls=store_in.api_calls + n_store_reads)
+    with span("tick.backstop"):
+        healthy = bs.store_healthy(store_in, t)
+        need_store_slot = need_fog_slot & ~fog_hit_slot
+        if spec.mutable:
+            kids_q = plan.r_kids[r_gidx]
+            (queue_hit_slot, store_read_slot, failed_slot, found_slot,
+             served_ts_slot) = _resolve_backstop_keyed(queue, store_in, healthy,
+                                                       need_store_slot, kids_q)
+        else:
+            queue_hit_slot, store_read_slot, failed_slot, found_slot, _ = _resolve_backstop(
+                queue, store_in, healthy, need_store_slot, plan.r_enq_idx[r_gidx]
+            )
+        n_store_reads = _sum(store_read_slot)
+        n_queue_hits = _sum(queue_hit_slot)
+        n_failed = _sum(failed_slot)
+        lan = lan + n_fog_queries * cfg.query_bytes + (n_responses + n_queue_hits) * cfg.row_bytes
+        txn = cfg.store.read_txn_bytes(store_in.drained_total)
+        wan_rx = n_store_reads.to(F32) * txn
+        store = dataclasses.replace(store_in, api_calls=store_in.api_calls + n_store_reads)
 
     # 4d. fill the reader's local cache from fog/queue/store responses.
-    fill_ok_slot = fog_hit_slot | queue_hit_slot | found_slot
-    if spec.mutable:
-        slot_payload = torch.where(
-            fog_hit_slot[:, None], best_payload_slot,
-            wl.versioned_payload(keys_q, served_ts_slot, cfg.payload_dim),
+    with span("tick.fill"):
+        fill_ok_slot = fog_hit_slot | queue_hit_slot | found_slot
+        if spec.mutable:
+            slot_payload = torch.where(
+                fog_hit_slot[:, None], best_payload_slot,
+                wl.versioned_payload(keys_q, served_ts_slot, cfg.payload_dim),
+            )
+            fill_ts = wb.set_drop(
+                torch.full((n,), -1, dtype=I32, device=dev), r_ids,
+                torch.where(fog_hit_slot, best_ts_slot, served_ts_slot),
+            )
+            fill_origin = torch.full((n,), -1, dtype=I32, device=dev)
+        else:
+            slot_payload = torch.where(
+                fog_hit_slot[:, None], best_payload_slot,
+                wl.payload_for(keys_q, cfg.payload_dim),
+            )
+            fill_ts = wb.set_drop(
+                plan.r_fill_ts, r_ids,
+                torch.where(fog_hit_slot, best_ts_slot, plan.r_fill_ts[r_gidx]),
+            )
+            fill_origin = plan.r_src
+        fill_lines = CacheLine(
+            key=r_keys,
+            data_ts=fill_ts,
+            origin=fill_origin,
+            data=wb.set_drop(torch.zeros((n, cfg.payload_dim), dtype=F32, device=dev),
+                             r_ids, slot_payload),
+            valid=wb.set_drop(torch.zeros((n,), dtype=torch.bool, device=dev), r_ids,
+                              fill_ok_slot),
+            dirty=torch.zeros((n,), dtype=torch.bool, device=dev),
         )
-        fill_ts = wb.set_drop(
-            torch.full((n,), -1, dtype=I32, device=dev), r_ids,
-            torch.where(fog_hit_slot, best_ts_slot, served_ts_slot),
-        )
-        fill_origin = torch.full((n,), -1, dtype=I32, device=dev)
-    else:
-        slot_payload = torch.where(
-            fog_hit_slot[:, None], best_payload_slot,
-            wl.payload_for(keys_q, cfg.payload_dim),
-        )
-        fill_ts = wb.set_drop(
-            plan.r_fill_ts, r_ids,
-            torch.where(fog_hit_slot, best_ts_slot, plan.r_fill_ts[r_gidx]),
-        )
-        fill_origin = plan.r_src
-    fill_lines = CacheLine(
-        key=r_keys,
-        data_ts=fill_ts,
-        origin=fill_origin,
-        data=wb.set_drop(torch.zeros((n, cfg.payload_dim), dtype=F32, device=dev),
-                         r_ids, slot_payload),
-        valid=wb.set_drop(torch.zeros((n,), dtype=torch.bool, device=dev), r_ids,
-                          fill_ok_slot),
-        dirty=torch.zeros((n,), dtype=torch.bool, device=dev),
-    )
-    caches, _ = insert_rows(caches, fill_lines, t, backend=cfg.probe_backend)
+        caches, _ = insert_rows(caches, fill_lines, t, backend=cfg.probe_backend)
 
     # 4e. staleness: served reads older than the key's newest write.
-    if spec.mutable:
-        served_slot = hit_local_slot | fog_hit_slot | queue_hit_slot | found_slot
-        got_ts_slot = torch.where(
-            hit_local_slot, ts_local_slot,
-            torch.where(fog_hit_slot, best_ts_slot, served_ts_slot),
-        )
-        truth_slot = latest_ts[kids_q.clamp(0, spec.key_universe - 1).long()]
-        n_stale = _sum(served_slot & (got_ts_slot < truth_slot))
-    else:
-        n_stale = torch.zeros((), dtype=I32, device=dev)
+    with span("tick.stale"):
+        if spec.mutable:
+            served_slot = hit_local_slot | fog_hit_slot | queue_hit_slot | found_slot
+            got_ts_slot = torch.where(
+                hit_local_slot, ts_local_slot,
+                torch.where(fog_hit_slot, best_ts_slot, served_ts_slot),
+            )
+            truth_slot = latest_ts[kids_q.clamp(0, spec.key_universe - 1).long()]
+            n_stale = _sum(served_slot & (got_ts_slot < truth_slot))
+        else:
+            n_stale = torch.zeros((), dtype=I32, device=dev)
 
     # ---- 5. writer drain + store commit ------------------------------------
-    queue, n_drained, n_calls = wb.drain(
-        queue, t, healthy,
-        rate_per_tick=cfg.store.api_rate_per_tick,
-        burst=cfg.store.api_burst,
-        max_per_tick=cfg.writer_max_per_tick,
-    )
-    store = bs.commit_writes(store, n_drained, n_calls, draws.u_coll, cfg.store)
-    if spec.mutable:
-        d_kids, d_ts, d_live = wb.drained_entries(queue, n_drained, cfg.writer_max_per_tick)
-        store = bs.commit_keyed_rows(store, d_kids, d_ts, d_live)
-    wan_tx = cfg.store.write_txn_bytes(n_drained)
+    with span("tick.drain"):
+        queue, n_drained, n_calls = wb.drain(
+            queue, t, healthy,
+            rate_per_tick=cfg.store.api_rate_per_tick,
+            burst=cfg.store.api_burst,
+            max_per_tick=cfg.writer_max_per_tick,
+        )
+        store = bs.commit_writes(store, n_drained, n_calls, draws.u_coll, cfg.store)
+        if spec.mutable:
+            d_kids, d_ts, d_live = wb.drained_entries(queue, n_drained, cfg.writer_max_per_tick)
+            store = bs.commit_keyed_rows(store, d_kids, d_ts, d_live)
+        wan_tx = cfg.store.write_txn_bytes(n_drained)
 
     # ---- 6. latency model + baseline accounting ----------------------------
-    n_reads = _sum(plan.reading)
-    n_hits_local = _sum(hit_local_slot)
-    n_fog_hits = _sum(fog_hit_slot)
-    # JAX writes a*lat_local + b*lat_lan + c*lat_store; XLA on the CPU
-    # compiles it as fma(c, lat_store, fma(a, lat_local, b*lat_lan)).
-    lat_lan = (n_fog_hits + n_queue_hits).to(F32) * (cfg.lat_lan_base + cfg.lat_lan_per_node * n)
-    lat = _fma32((n_store_reads + n_failed).to(F32), cfg.lat_store,
-                 _fma32(n_hits_local.to(F32), cfg.lat_local, lat_lan))
-    baseline_table_rows = queue.tail + queue.dropped + queue.coalesced
-    baseline = (
-        n_writes.to(F32) * cfg.row_bytes
-        + n_reads.to(F32) * cfg.store.read_txn_bytes(baseline_table_rows)
-    )
+    with span("tick.metrics"):
+        n_reads = _sum(plan.reading)
+        n_hits_local = _sum(hit_local_slot)
+        n_fog_hits = _sum(fog_hit_slot)
+        # JAX writes a*lat_local + b*lat_lan + c*lat_store; XLA on the CPU
+        # compiles it as fma(c, lat_store, fma(a, lat_local, b*lat_lan)).
+        lat_lan = (n_fog_hits + n_queue_hits).to(F32) * (cfg.lat_lan_base
+                                                         + cfg.lat_lan_per_node * n)
+        lat = _fma32((n_store_reads + n_failed).to(F32), cfg.lat_store,
+                     _fma32(n_hits_local.to(F32), cfg.lat_local, lat_lan))
+        baseline_table_rows = queue.tail + queue.dropped + queue.coalesced
+        baseline = (
+            n_writes.to(F32) * cfg.row_bytes
+            + n_reads.to(F32) * cfg.store.read_txn_bytes(baseline_table_rows)
+        )
 
-    metrics = TickMetrics(
-        wan_tx_bytes=wan_tx,
-        wan_rx_bytes=wan_rx,
-        lan_bytes=lan,
-        reads=n_reads,
-        hits_local=n_hits_local,
-        hits_fog=n_fog_hits,
-        misses=n_store_reads + n_failed,
-        store_found=_sum(found_slot),
-        store_missing=_sum(store_read_slot & ~found_slot),
-        writes_gen=n_writes,
-        writes_drained=n_drained,
-        queue_depth=queue.size(),
-        queue_dropped=queue.dropped,
-        store_txn_bytes=wan_rx + wan_tx,
-        store_txns=n_store_reads + n_calls,
-        read_latency_sum=lat,
-        baseline_wan_bytes=baseline,
-        hits_queue=n_queue_hits,
-        ticks=torch.ones((), dtype=I32, device=dev),
-        coherence_updates=n_coh,
-        stale_reads=n_stale,
-        writes_coalesced=queue.coalesced - state.queue.coalesced,
-        churn_rejoins=n_rejoin,
-        wire_bytes=torch.zeros((), dtype=F32, device=dev),
-    )
-    new_state = SimState(
-        caches=caches, queue=queue, store=store, channel=channel,
-        tick=state.tick + 1, latest_ts=latest_ts, plan=plan.state_next,
-    )
+        metrics = TickMetrics(
+            wan_tx_bytes=wan_tx,
+            wan_rx_bytes=wan_rx,
+            lan_bytes=lan,
+            reads=n_reads,
+            hits_local=n_hits_local,
+            hits_fog=n_fog_hits,
+            misses=n_store_reads + n_failed,
+            store_found=_sum(found_slot),
+            store_missing=_sum(store_read_slot & ~found_slot),
+            writes_gen=n_writes,
+            writes_drained=n_drained,
+            queue_depth=queue.size(),
+            queue_dropped=queue.dropped,
+            store_txn_bytes=wan_rx + wan_tx,
+            store_txns=n_store_reads + n_calls,
+            read_latency_sum=lat,
+            baseline_wan_bytes=baseline,
+            hits_queue=n_queue_hits,
+            ticks=torch.ones((), dtype=I32, device=dev),
+            coherence_updates=n_coh,
+            stale_reads=n_stale,
+            writes_coalesced=queue.coalesced - state.queue.coalesced,
+            churn_rejoins=n_rejoin,
+            wire_bytes=torch.zeros((), dtype=F32, device=dev),
+        )
+        new_state = SimState(
+            caches=caches, queue=queue, store=store, channel=channel,
+            tick=state.tick + 1, latest_ts=latest_ts, plan=plan.state_next,
+        )
     return new_state, metrics
 
 
@@ -727,7 +742,9 @@ def run_sim(cfg: SimConfig, ticks: int, seed: int = 0, *, device=None,
             return d
 
     def step(s: SimState):
-        return tick_fn(cfg, s, source(s, next(ticks_host)))
+        d = source(s, next(ticks_host))
+        with span("sim.tick"):
+            return tick_fn(cfg, s, d)
 
     return windowed_loop(step, state, ticks, metrics_every)
 
