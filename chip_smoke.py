@@ -27,7 +27,11 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    ``flic_update`` and ``flic_insert``; with
    the median time of 20 runs of each, the card's time bound for the bytes
    that those inputs need, and ``launch_floor_ms``, the time of an empty
-   launch (``torch.cuda._sleep(0)``) under the same timing;
+   launch (``torch.cuda._sleep(0)``) under the same timing; ``payload_hash``
+   on the rows the dense tick 200 (1,000 writers, versioned, and its 67
+   readers) and the city tick 60 (10,000 writers and 667 readers, not
+   versioned) hash, and on 10,000 random versioned rows with edge keys,
+   one launch a call;
 4. ``replay``: the committed JAX replays (``src/repro_torch/testdata``:
    all 17 conformance cases at seeds 0 and 1) through ``run_sim`` with the
    kernels; each ``TickMetrics`` series must equal JAX's bitwise, each run
@@ -36,8 +40,9 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    have launched across the replays;
 5. ``dense``: the main path, N=1,000 nodes, dense gossip, the ``zipf_hot``
    workload (the coherence sweep is live), Gilbert-Elliott loss and a store
-   outage, 600 ticks, with the kernels and with the inline path; the two
-   series must be equal and each kernel must have launched;
+   outage, 600 ticks, with the kernels and with the inline path (the
+   plain payload hash there too); the two series must be equal and each
+   kernel must have launched, ``payload_hash`` twice a tick;
 6. ``city``: the paper's stream at N=10,000 nodes with fan-out 32, 120
    ticks, with the kernels and with the inline path; equal series;
 6a. ``replicate``: the dense cell's shape on the paper's stream under the
@@ -288,7 +293,11 @@ REPLACES = {   # the TPU kernel each CUDA kernel replaces (the def of its pallas
     "ssd_scan": "src/repro/kernels/ssd_scan.py:45",
     # no TPU kernel: JAX's gradient is XLA's autodiff of the model's lax.scan
     "ssd_scan_bwd": "none (XLA autodiff of src/repro/models/ssm.py:131)",
+    # no TPU kernel: XLA fuses JAX's payload_for / versioned_payload
+    "payload_hash": "none (XLA fusion of src/repro/core/workload.py:297,311)",
 }
+HASH = "payload_hash"
+HAND_KERNELS = (*FLIC_KERNELS, HASH)   # the fog tick's hand kernels
 
 
 
@@ -485,7 +494,20 @@ def lookup_work(torch, tags, data_ts, valid, data, keys, sidx):
     return nbytes, c * q * w * 3, info
 
 
-WORK = {"flic_insert": insert_work, "flic_update": update_work, "flic_lookup": lookup_work}
+def payload_work(torch, key, data_ts, dim):
+    """A key (and a timestamp) read and D floats written a row; 32-bit
+    integer operations: a row's base hash2 (24, versioned only), its
+    splitmix and mix base (13), then 13 a lane (mix, splitmix, convert,
+    scale)."""
+    m = key.numel()
+    versioned = data_ts is not None
+    nbytes = 4 * m * (1 + versioned + dim)
+    return nbytes, m * (13 + 13 * dim + 24 * versioned), dict(rows=m, dim=dim,
+                                                               versioned=versioned)
+
+
+WORK = {"flic_insert": insert_work, "flic_update": update_work, "flic_lookup": lookup_work,
+        HASH: payload_work}
 
 
 def copy_at(torch, t, offset: int):
@@ -529,13 +551,18 @@ def check_and_time(torch, name: str, args, cycles_per_ms: float) -> dict:
     def fresh():
         return [clone_at_offset(torch, a) if isinstance(a, torch.Tensor) else a for a in args]
 
+    ops.reset_launches()
     got = kernel(*fresh())
     torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
     want = plain(*args)
+    if isinstance(want, torch.Tensor):
+        got, want = (got,), (want,)
     for i, (g, w) in enumerate(zip(got, want)):
         if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
             raise AssertionError(f"{name}: output {i} differs from the plain version")
     nbytes, ops_n, info = WORK[name](torch, *args)
+    info["launches"] = launches
     b_ms, b_by = bound(nbytes, ops_n)
     plan = plan_of(name, args)
     if plan is not None:
@@ -554,12 +581,15 @@ def check_and_time(torch, name: str, args, cycles_per_ms: float) -> dict:
 def capture_main_path(torch, device, cfg, ticks: int, at: dict) -> dict:
     """Inputs of chosen kernel calls in a native run of ``cfg`` with the
     kernels: ``at[name]`` lists the indices, among that kernel's calls in
-    the run, of the calls to copy.  Returns ``{(name, index): args}``."""
+    the run, of the calls to copy (``payload_hash``: of ``ops.payload_hash``,
+    through which ``core/workload.py`` hashes).  Returns ``{(name, index):
+    args}``."""
     from repro_torch.core import flic
     from repro_torch.core.simulator import run_sim
+    from repro_torch.kernels import ops
 
-    real = flic.KERNEL_BACKENDS["cuda"]
-    calls = {name: 0 for name in FLIC_KERNELS}
+    real, real_hash = flic.KERNEL_BACKENDS["cuda"], ops.payload_hash
+    calls = {name: 0 for name in HAND_KERNELS}
     got = {}
 
     def spy(name, fn):
@@ -573,10 +603,11 @@ def capture_main_path(torch, device, cfg, ticks: int, at: dict) -> dict:
         return call
 
     flic.KERNEL_BACKENDS["cuda"] = tuple(spy(n, f) for n, f in zip(FLIC_KERNELS, real))
+    ops.payload_hash = spy(HASH, real_hash)
     try:
         run_sim(dataclasses.replace(cfg, probe_backend="cuda"), ticks, seed=0, device=device)
     finally:
-        flic.KERNEL_BACKENDS["cuda"] = real
+        flic.KERNEL_BACKENDS["cuda"], ops.payload_hash = real, real_hash
     missing = [(n, i) for n, idx in at.items() for i in idx if (n, i) not in got]
     if missing:
         raise AssertionError(f"the run never made kernel calls {missing}")
@@ -785,19 +816,39 @@ def shard_insert_case(args) -> dict:
             [a[nodes].contiguous() for a in args[:15]] + [args[15]]}
 
 
+def hash_random(torch, device, m: int, dim: int = 8) -> list:
+    """``payload_hash`` arguments: ``m`` random versioned rows, the first
+    ten the edge keys (0, 1, INT32_MAX, -1, INT32_MIN) at timestamps 0 and
+    INT32_MAX."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(27)
+    key = torch.randint(-2**31, 2**31, (m,), generator=gen, device=device,
+                        dtype=torch.int64).to(torch.int32)
+    ts = torch.randint(0, 2**31, (m,), generator=gen, device=device,
+                       dtype=torch.int64).to(torch.int32)
+    edge = torch.tensor([0, 1, 2**31 - 1, -1, -2**31], dtype=torch.int32, device=device)
+    key[:10] = edge.repeat_interleave(2)
+    ts[:10] = torch.tensor([0, 2**31 - 1], dtype=torch.int32, device=device).repeat(5)
+    return [key, ts, dim]
+
+
 def kernel_phase(torch, device, cfgs, cycles_per_ms) -> dict:
     """Each kernel on the inputs the main path gives it (copied from one
     tick of each cell: dense tick 200, before the outage; city tick 60;
     replicate tick 20, row 500; poisson and trace tick 100, before their
-    outage) and on arbitrary states; bitwise against the plain version,
-    timed, bound.  The first main-path case of each kernel is its headline.
+    outage; ``payload_hash``: the dense and the city tick's two calls, the
+    writers' rows and the readers') and on arbitrary states; bitwise
+    against the plain version, timed, bound; one ``payload_hash`` call is
+    one launch.  The first main-path case of each kernel is its headline.
     For ``flic_insert`` and ``flic_lookup`` also every instantiation
     (``coverage_cases``, which must reach each of ``ops.row_plans``)."""
     from repro_torch.kernels import ops
 
     dense = capture_main_path(torch, device, cfgs["dense"], 201, {
-        "flic_update": (200,), "flic_lookup": (200,), "flic_insert": (400,)})
-    city = capture_main_path(torch, device, cfgs["city"], 61, {"flic_insert": (120, 121)})
+        "flic_update": (200,), "flic_lookup": (200,), "flic_insert": (400,),
+        HASH: (400, 401)})     # two hash calls a tick: the writers', then the readers'
+    city = capture_main_path(torch, device, cfgs["city"], 61, {
+        "flic_insert": (120, 121), HASH: (120, 121)})
     n_rep = cfgs["replicate"].n_nodes + 1          # insert calls a replicate tick
     rep = capture_main_path(torch, device, cfgs["replicate"], 21, {
         "flic_insert": (20 * n_rep + 500,), "flic_lookup": (20,)})
@@ -817,6 +868,9 @@ def kernel_phase(torch, device, cfgs, cycles_per_ms) -> dict:
         "flic_lookup": {"dense_t200": dense["flic_lookup", 200],
                         "replicate_t20": rep["flic_lookup", 20],
                         "trace_t100": trc["flic_lookup", 100]},
+        HASH: {"city_t60_writes": city[HASH, 120], "city_t60_reads": city[HASH, 121],
+               "dense_t200_writes": dense[HASH, 400], "dense_t200_reads": dense[HASH, 401],
+               "random_10000_versioned": hash_random(torch, device, 10_000)},
     }
     cases["flic_update"].update(shard_update_case(dense["flic_update", 200]))
     cases["flic_insert"].update(shard_insert_case(dense["flic_insert", 400]))
@@ -828,6 +882,8 @@ def kernel_phase(torch, device, cfgs, cycles_per_ms) -> dict:
                for label, args in by_label.items()}
         for name, by_label in cases.items()
     }
+    if any(v["launches"] != {HASH: 1} for v in out[HASH].values()):
+        raise AssertionError(f"{HASH}: a call is not one launch: {out[HASH]}")
     for name in ("flic_insert", "flic_lookup"):
         reached = {tuple(v["plan"].values()) for v in out[name].values()}
         missing = [p for p in ops.row_plans() if tuple(p) not in reached]
@@ -852,14 +908,23 @@ def series_equal(torch, a, b, label: str) -> None:
 
 
 def timed_run(torch, cfg, ticks, backend, device):
+    """``cfg`` for ``ticks`` ticks with FLIC backend ``backend``; the inline
+    run (``None``) hashes payloads with the plain version too (the hash's
+    wrapper follows the device alone), so that it is plain throughout."""
     from repro_torch.core.simulator import run_sim
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
 
     cfg = dataclasses.replace(cfg, probe_backend=backend)
+    real_hash = ops.payload_hash
+    if backend is None:
+        ops.payload_hash = ref.payload_hash_ref
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, series = run_sim(cfg, ticks, seed=0, device=device)
+    try:
+        _, series = run_sim(cfg, ticks, seed=0, device=device)
+    finally:
+        ops.payload_hash = real_hash
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return series, ticks / secs, dict(ops.LAUNCHES)
@@ -890,7 +955,7 @@ def replay_phase(torch, device) -> list:
     paths = sorted((ROOT / "src" / "repro_torch" / "testdata").glob("replay_*.npz"))
     if len(paths) != 34:
         raise AssertionError(f"expected 34 replay fixtures, found {len(paths)}")
-    total = dict.fromkeys(FLIC_KERNELS, 0)
+    total = dict.fromkeys(HAND_KERNELS, 0)
     for path in paths:
         cfg, draws, expected = load_replay(path, device)
         cfg = dataclasses.replace(cfg, probe_backend="cuda")
@@ -910,12 +975,12 @@ def replay_phase(torch, device) -> list:
         missing = [k for k in replay_kernels(cfg) if launches[k] == 0]
         if missing:
             raise AssertionError(f"replay {path.name}: kernels {missing} not launched: {launches}")
-        for k in FLIC_KERNELS:
+        for k in HAND_KERNELS:
             total[k] += launches[k]
         emit("replay", file=path.name, ticks=len(draws), equal_to_jax=True,
              ticks_per_s=len(draws) / secs, launches=launches)
     if not all(total.values()):
-        raise AssertionError(f"replays: a FLIC kernel never launched: {total}")
+        raise AssertionError(f"replays: a hand kernel never launched: {total}")
     return paths
 
 
@@ -992,7 +1057,7 @@ def tick_profile(torch, device, cfg, ticks_per_s: float, ticks: int = 20) -> dic
         kernel_launches_per_tick=sum(e.count for e in kernels) / ticks,
         hand_kernels_ms_per_tick={
             name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / ticks
-            for name in ("flic_insert", "flic_update", "flic_lookup")
+            for name in HAND_KERNELS
         },
         top_kernels_ms_per_tick=[[e.key[:80], e.self_device_time_total / 1e3 / ticks]
                                  for e in top],
@@ -4077,24 +4142,24 @@ def main() -> None:
     elapsed("replay")
 
     cell_launches = {}
-    cell_launches["dense"], _, dense_series = engine_phase(torch, device, "dense", dense_cfg,
-                                                           600, FLIC_KERNELS)
+    cell_launches["dense"], _, dense_series = engine_phase(
+        torch, device, "dense", dense_cfg, 600, HAND_KERNELS, per_tick={HASH: 2})
     cell_launches["city"], city, _ = engine_phase(torch, device, "city", city_cfg, 120,
-                                                  ("flic_insert",))
+                                                  ("flic_insert", HASH), per_tick={HASH: 2})
     if city["queue_dropped"] <= 0:
         raise AssertionError("city: the writer ring was expected to overflow")
     n = replicate_cfg.n_nodes
     cell_launches["replicate"], _, _ = engine_phase(
         torch, device, "replicate", replicate_cfg, 30, ("flic_insert", "flic_lookup"),
-        per_tick={"flic_insert": n + 1, "flic_update": 0, "flic_lookup": 1},
+        per_tick={"flic_insert": n + 1, "flic_update": 0, "flic_lookup": 1, HASH: 2},
         profile_ticks=5)    # ~2,500 launches a tick: 5 ticks keep the trace short
     cell_launches["poisson"], _, _ = engine_phase(
-        torch, device, "poisson", poisson_cfg, 300, FLIC_KERNELS,
-        per_tick={"flic_insert": 5, "flic_update": 4, "flic_lookup": 1})
+        torch, device, "poisson", poisson_cfg, 300, HAND_KERNELS,
+        per_tick={"flic_insert": 5, "flic_update": 4, "flic_lookup": 1, HASH: 5})
     trace_on_card(torch, device, trace_cfg)
     cell_launches["trace"], _, _ = engine_phase(
-        torch, device, "trace", trace_cfg, 300, FLIC_KERNELS,
-        per_tick={"flic_insert": 2, "flic_update": 1, "flic_lookup": 1})
+        torch, device, "trace", trace_cfg, 300, HAND_KERNELS,
+        per_tick={"flic_insert": 2, "flic_update": 1, "flic_lookup": 1, HASH: 2})
     elapsed("engine cells")
     reference_phase(torch, device, replays)
     elapsed("reference")
@@ -4106,7 +4171,7 @@ def main() -> None:
         for engine in ("distributed", "sharded"):
             res = runs[engine]
             cell_launches[f"{engine}_w{world}"] = {
-                k: sum(rank[k] for rank in res.launches) for k in FLIC_KERNELS}
+                k: sum(rank[k] for rank in res.launches) for k in HAND_KERNELS}
     elapsed("multi-rank engines")
 
     serve = serve_phase(torch, device)
@@ -4182,15 +4247,15 @@ def main() -> None:
     emit("new_phases", seconds=time.perf_counter() - t_new + costs["waited_s"])
     elapsed("shard, dryrun and roofline")
 
-    # Headline case of each FLIC kernel: the first main-path case of the
-    # kernels phase.  Launches: the main path's kernel runs of the five
-    # engine cells (dense, city, replicate, poisson, trace), each counted
-    # from 0.  max_abs_err is 0: every FLIC kernel passed a bitwise
-    # comparison.  paged_attention: the Granite serve run's launches and
+    # Headline case of each FLIC kernel and of payload_hash: the first
+    # main-path case of the kernels phase.  Launches: the main path's kernel
+    # runs of the five engine cells (dense, city, replicate, poisson, trace)
+    # and of the multi-rank engines, each counted from 0.  max_abs_err is 0:
+    # each of them passed a bitwise comparison.  paged_attention: the Granite serve run's launches and
     # InternVL2's paged run's, its headline the Granite serve step's inputs,
     # its error the largest over all its cases and checked calls.
     lines = []
-    for name in FLIC_KERNELS:
+    for name in HAND_KERNELS:
         head = next(iter(kres[name].values()))
         lines.append({
             "name": name, "route": "cuda",

@@ -33,7 +33,8 @@ import torch
 
 from repro_torch.core.cache_state import CacheLine
 from repro_torch.core.tracing import span
-from repro_torch.utils.hashing import hash2_u32, hash2_u32_unsigned
+from repro_torch.kernels import ops
+from repro_torch.utils.hashing import hash2_u32
 
 KEY_SALT = 0x5A1FCA5E
 WRITE_SALT = 0x57A9
@@ -214,18 +215,16 @@ SCENARIOS: dict[str, WorkloadSpec] = {
 # --------------------------------------------------------------------------
 
 def payload_for(key: torch.Tensor, dim: int) -> torch.Tensor:
-    """Deterministic payload lanes ~ U[0, 1) from a key hash."""
+    """Deterministic payload lanes ~ U[0, 1) from a key hash
+    (``kernels.ops.payload_hash``: the kernel on the card)."""
     with span("wl.payload"):
-        lanes = hash2_u32_unsigned(
-            key[..., None], torch.arange(dim, dtype=torch.int64, device=key.device)
-        )
-        return lanes.to(torch.float32) / float(2**32)
+        return ops.payload_hash(key, None, dim)
 
 
 def versioned_payload(key: torch.Tensor, data_ts: torch.Tensor, dim: int) -> torch.Tensor:
     """Payload of version ``data_ts`` of a mutable key (pure in (key, ts))."""
     with span("wl.payload"):
-        return payload_for(hash2_u32(key, data_ts), dim)
+        return ops.payload_hash(key, data_ts, dim)
 
 
 def zipf_cdf(spec: WorkloadSpec, device=None) -> torch.Tensor:

@@ -10,7 +10,10 @@ through the kernel or the call raises.
 The FLIC kernels update the cache tables IN PLACE (``flic_insert`` all
 eight, ``flic_update`` ``data_ts``/``last_use``/``data``) and return those
 same tensors; the plain versions return new ones.  ``flic_merge``,
-``paged_attention`` and ``ssd_scan`` allocate their outputs.
+``paged_attention``, ``ssd_scan`` and ``payload_hash`` allocate their
+outputs.  ``payload_hash`` is the fog tick's payload hash
+(``core/workload.py``'s ``payload_for`` and ``versioned_payload``); like
+``ssd_scan_bwd`` it replaces no Pallas kernel (XLA fuses the hash there).
 
 ``flic_insert``, ``flic_lookup`` and ``flic_merge`` launch the
 instantiation of their kernel that ``insert_plan_for`` /
@@ -34,7 +37,7 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES: dict[str, int] = {
     "flic_insert": 0, "flic_update": 0, "flic_lookup": 0, "flic_merge": 0,
-    "paged_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0,
+    "paged_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, "payload_hash": 0,
 }
 # Launch names whose entry lives in another kernel's source.
 SOURCE = {"ssd_scan_bwd": "ssd_scan"}
@@ -313,6 +316,35 @@ def flic_merge(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b):
         (s, w, d, plan.ways, int(plan.vec), merge_blocks(sets, sm_count(tags_a.device))),
     )
     return out
+
+
+def payload_hash(key, data_ts, dim: int):
+    """The payload lanes of rows ``key`` at version ``data_ts`` (``None``:
+    an immutable key's payload); see ``ref.payload_hash_ref``.  ``key`` of
+    any integer dtype and shape (only its low 32 bits matter: on CUDA
+    another dtype is cast to int32), ``data_ts`` of its shape.  Returns
+    ``key.shape + (dim,)`` float32, on CUDA bit for bit the plain
+    version's.  On CUDA, int32 contiguous inputs launch the kernel and
+    nothing else."""
+    if not _on_cuda(key):
+        return ref.payload_hash_ref(key, data_ts, dim)
+    if data_ts is not None and data_ts.shape != key.shape:
+        raise ValueError(f"data_ts has shape {tuple(data_ts.shape)}, expected {tuple(key.shape)}")
+    m = key.numel()
+    if m > ref.INT32_MAX:
+        raise ValueError(f"{m} rows exceed the kernel's limit of 2**31 - 1")
+    rows = {"key": _i32_rows(key)}
+    if data_ts is not None:
+        rows["data_ts"] = _i32_rows(data_ts)
+    _check(key.device, **{name: (t, I32, (m,)) for name, t in rows.items()})
+    out = torch.empty((*key.shape, dim), dtype=F32, device=key.device)
+    _launch("payload_hash", key.device, (rows["key"], rows.get("data_ts"), out), (m, dim))
+    return out
+
+
+def _i32_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a 1-D int32 tensor: a view where it is int32 and contiguous."""
+    return (t if t.dtype == I32 else t.to(I32)).contiguous().view(-1)
 
 
 # The paged_attention kernel's split over the KV length: the blocks per SM a

@@ -2,11 +2,14 @@
 
 Ports of ``repro.kernels.ref`` (``flic_lookup_ref``, ``flic_update_ref``,
 ``flic_insert_ref``, ``flic_merge_ref``, ``paged_attention_ref``,
-``ssd_scan_ref``) with the same contracts.  They are the CPU path of the
-``kernels.ops`` wrappers, the ``probe_backend="plain"`` path of the
-simulator, the ``kernel_backend="plain"`` path of the serving engine, the
-Mamba2 model's scan when it is given ``ssd_scan=ref.ssd_scan_ref``, and
-what ``chip_smoke.py`` holds each CUDA kernel against on the card.
+``ssd_scan_ref``) with the same contracts, and ``payload_hash_ref``, the
+payload hash of ``core/workload.py`` (the JAX package leaves it to XLA, with
+no Pallas kernel).  They are the CPU path of the ``kernels.ops`` wrappers,
+the ``probe_backend="plain"`` path of the simulator, the
+``kernel_backend="plain"`` path of the serving engine, the Mamba2 model's
+scan when it is given ``ssd_scan=ref.ssd_scan_ref``, and what
+``chip_smoke.py`` (``payload_hash``: ``tests/test_torch_payload_hash.py``)
+holds each CUDA kernel against on the card.
 
 Differences in form from the JAX oracles, none in result:
 
@@ -21,6 +24,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from repro_torch.utils.hashing import hash2_u32, hash2_u32_unsigned
 
 INT32_MAX = 2**31 - 1
 
@@ -202,6 +207,24 @@ def flic_merge_ref(tags_a, ts_a, valid_a, data_a, tags_b, ts_b, valid_b, data_b)
         valid_a | valid_b,
         torch.where(take_b[..., None], data_b, data_a),
     )
+
+
+# ---------------------------------------------------------------------------
+# payload_hash: the payload lanes of cache rows from their keys
+# ---------------------------------------------------------------------------
+
+def payload_hash_ref(key, data_ts, dim: int):
+    """Deterministic payload lanes ~ U[0, 1) of rows ``key`` (any integer
+    dtype; its low 32 bits): row base ``a = hash2_u32(key, data_ts)`` for a
+    version's timestamp ``data_ts`` (same shape), else ``a = key`` when
+    ``data_ts`` is ``None``; lane ``d`` is ``hash2_u32(a, d)`` as float32
+    over 2**32.  Returns ``key.shape + (dim,)`` float32."""
+    if data_ts is not None:
+        key = hash2_u32(key, data_ts)
+    lanes = hash2_u32_unsigned(
+        key[..., None], torch.arange(dim, dtype=torch.int64, device=key.device)
+    )
+    return lanes.to(torch.float32) / float(2**32)
 
 
 # ---------------------------------------------------------------------------
