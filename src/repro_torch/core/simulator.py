@@ -394,7 +394,8 @@ def _fma32(x: torch.Tensor, y: float, z: torch.Tensor) -> torch.Tensor:
 def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimState, TickMetrics]:
     """One tick of the fused engine on the draws of tick ``draws.t``.
 
-    Each numbered stage runs inside a ``tick.*`` span (``core/tracing.py``)."""
+    Each numbered stage runs inside a ``tick.*`` span (``core/tracing.py``),
+    and each call into the writer ring inside a ``ring.*`` span of its stage."""
     n = cfg.n_nodes
     spec = cfg.workload
     t = draws.t
@@ -449,15 +450,18 @@ def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimStat
         queue = state.queue
         if spec.mutable:
             for p, rows in enumerate(rows_waves):
-                queue, _ = wb.enqueue_keyed(queue, plan.w_kids[p], rows.data_ts,
-                                            rows.origin, plan.w_valid[p])
+                with span("ring.enqueue"):
+                    queue, _ = wb.enqueue_keyed(queue, plan.w_kids[p], rows.data_ts,
+                                                rows.origin, plan.w_valid[p])
                 latest_ts = wb.max_drop(
                     latest_ts, torch.where(plan.w_valid[p], plan.w_kids[p], spec.key_universe),
                     rows.data_ts,
                 )
         else:
             rows = rows_waves[0]
-            queue, _ = wb.enqueue(queue, rows.key, rows.data_ts, rows.origin, plan.w_valid[0])
+            with span("ring.enqueue"):
+                queue, _ = wb.enqueue(queue, rows.key, rows.data_ts, rows.origin,
+                                      plan.w_valid[0])
 
     # ---- 4. reads ------------------------------------------------------------
     with span("tick.probe"):
@@ -558,15 +562,16 @@ def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimStat
     with span("tick.backstop"):
         healthy = bs.store_healthy(store_in, t)
         need_store_slot = need_fog_slot & ~fog_hit_slot
-        if spec.mutable:
-            kids_q = plan.r_kids[r_gidx]
-            (queue_hit_slot, store_read_slot, failed_slot, found_slot,
-             served_ts_slot) = _resolve_backstop_keyed(queue, store_in, healthy,
-                                                       need_store_slot, kids_q)
-        else:
-            queue_hit_slot, store_read_slot, failed_slot, found_slot, _ = _resolve_backstop(
-                queue, store_in, healthy, need_store_slot, plan.r_enq_idx[r_gidx]
-            )
+        with span("ring.backstop"):
+            if spec.mutable:
+                kids_q = plan.r_kids[r_gidx]
+                (queue_hit_slot, store_read_slot, failed_slot, found_slot,
+                 served_ts_slot) = _resolve_backstop_keyed(queue, store_in, healthy,
+                                                           need_store_slot, kids_q)
+            else:
+                queue_hit_slot, store_read_slot, failed_slot, found_slot, _ = _resolve_backstop(
+                    queue, store_in, healthy, need_store_slot, plan.r_enq_idx[r_gidx]
+                )
         n_store_reads = _sum(store_read_slot)
         n_queue_hits = _sum(queue_hit_slot)
         n_failed = _sum(failed_slot)
@@ -625,15 +630,18 @@ def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimStat
 
     # ---- 5. writer drain + store commit ------------------------------------
     with span("tick.drain"):
-        queue, n_drained, n_calls = wb.drain(
-            queue, t, healthy,
-            rate_per_tick=cfg.store.api_rate_per_tick,
-            burst=cfg.store.api_burst,
-            max_per_tick=cfg.writer_max_per_tick,
-        )
+        with span("ring.drain"):
+            queue, n_drained, n_calls = wb.drain(
+                queue, t, healthy,
+                rate_per_tick=cfg.store.api_rate_per_tick,
+                burst=cfg.store.api_burst,
+                max_per_tick=cfg.writer_max_per_tick,
+            )
         store = bs.commit_writes(store, n_drained, n_calls, draws.u_coll, cfg.store)
         if spec.mutable:
-            d_kids, d_ts, d_live = wb.drained_entries(queue, n_drained, cfg.writer_max_per_tick)
+            with span("ring.drain"):
+                d_kids, d_ts, d_live = wb.drained_entries(queue, n_drained,
+                                                          cfg.writer_max_per_tick)
             store = bs.commit_keyed_rows(store, d_kids, d_ts, d_live)
         wan_tx = cfg.store.write_txn_bytes(n_drained)
 

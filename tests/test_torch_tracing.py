@@ -1,8 +1,9 @@
 """The port's spans (``repro_torch/core/tracing.py``) under ``torch.profiler``.
 
 One tick of a small fog, traced on the CPU, holds one ``sim.tick`` span,
-the eleven ``tick.*`` stages in order inside it, and the coherence sweep's
-and the payload hash's spans inside the stages that call them.  The stages
+the eleven ``tick.*`` stages in order inside it, and the coherence sweep's,
+the payload hash's and the writer ring's spans inside the stages that call
+them.  The stages
 cover the tick: every aten op of the tick lies in exactly one of them.
 Traced or not, a run computes the same bits, and with no profiler a span
 is one shared null context that never enters ``record_function``.
@@ -28,6 +29,9 @@ STAGES = ["tick.start", "tick.write_rows", "tick.delivery", "tick.writes", "tick
 LAYER_PARENTS = {
     "flic.update": {"tick.writes"},
     "wl.payload": {"tick.write_rows", "tick.fill", "wl.payload"},
+    "ring.enqueue": {"tick.enqueue"},
+    "ring.backstop": {"tick.backstop"},
+    "ring.drain": {"tick.drain"},
 }
 CASES = {
     "dense_zipf": dict(popularity="zipf", key_universe=256),
@@ -76,7 +80,7 @@ def test_one_tick_holds_its_spans_nested(case, backend, tmp_path):
     assert {parent(s, spans) for s in spans if s[2].startswith("tick.")} == {"sim.tick"}
 
     layers = {n: {parent(s, spans) for s in spans if s[2] == n} for n in LAYER_PARENTS}
-    expected = {"wl.payload"}
+    expected = {"wl.payload", "ring.enqueue", "ring.backstop", "ring.drain"}
     if cfg.workload.mutable:
         expected.add("flic.update")
     assert {n for n, held in layers.items() if held} == expected
