@@ -31,18 +31,25 @@ hand-written CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    on the rows the dense tick 200 (1,000 writers, versioned, and its 67
    readers) and the city tick 60 (10,000 writers and 667 readers, not
    versioned) hash, and on 10,000 random versioned rows with edge keys,
-   one launch a call;
+   one launch a call; a second ``kernels`` line (``kernel`` "ring") holds
+   the writer ring's six entries (``csrc/ring.cu``) on the calls of one
+   tick of each benchmark cell at full size (``ring_cells``), bitwise, one
+   launch a call, timed with the L2 cache flushed;
 4. ``replay``: the committed JAX replays (``src/repro_torch/testdata``:
    all 17 conformance cases at seeds 0 and 1) through ``run_sim`` with the
    kernels; each ``TickMetrics`` series must equal JAX's bitwise, each run
    must launch ``flic_insert``, ``flic_update`` where the workload is
-   mutable and ``flic_lookup`` where the probe is dense, and all three must
-   have launched across the replays;
+   mutable, ``flic_lookup`` where the probe is dense and the writer ring's
+   entries of its path (``ring_per_tick``), and every hand kernel of the
+   fog tick must have launched across the replays;
 5. ``dense``: the main path, N=1,000 nodes, dense gossip, the ``zipf_hot``
    workload (the coherence sweep is live), Gilbert-Elliott loss and a store
    outage, 600 ticks, with the kernels and with the inline path (the
-   plain payload hash there too); the two series must be equal and each
-   kernel must have launched, ``payload_hash`` twice a tick;
+   plain payload hash and the plain writer ring there too); the two series
+   must be equal and each kernel must have launched, ``payload_hash`` twice
+   a tick; in this and every engine cell below, the writer ring's entries
+   of the cell's path exactly once a tick (the keyed enqueue once a write
+   wave) and the other path's never;
 6. ``city``: the paper's stream at N=10,000 nodes with fan-out 32, 120
    ticks, with the kernels and with the inline path; equal series;
 6a. ``replicate``: the dense cell's shape on the paper's stream under the
@@ -295,9 +302,24 @@ REPLACES = {   # the TPU kernel each CUDA kernel replaces (the def of its pallas
     "ssd_scan_bwd": "none (XLA autodiff of src/repro/models/ssm.py:131)",
     # no TPU kernel: XLA fuses JAX's payload_for / versioned_payload
     "payload_hash": "none (XLA fusion of src/repro/core/workload.py:297,311)",
+    # no TPU kernel: XLA fuses each call of JAX's writer ring
+    "ring_enqueue": "none (XLA fusion of src/repro/core/writeback.py:79)",
+    "ring_enqueue_keyed": "none (XLA fusion of src/repro/core/writeback.py:168)",
+    "ring_backstop": "none (XLA fusion of src/repro/core/simulator.py:298)",
+    "ring_backstop_keyed": "none (XLA fusion of src/repro/core/simulator.py:323)",
+    "ring_drain": "none (XLA fusion of src/repro/core/writeback.py:114)",
+    "ring_drained": "none (XLA fusion of src/repro/core/writeback.py:265)",
 }
 HASH = "payload_hash"
-HAND_KERNELS = (*FLIC_KERNELS, HASH)   # the fog tick's hand kernels
+# The writer ring's entries (ops.RING_ENTRIES, csrc/ring.cu) and each one's
+# __global__ name, by which a profile finds it: one entry's name is a prefix
+# of another's (ring_enqueue, ring_enqueue_keyed).
+RING_KERNELS = {
+    "ring_enqueue": "ring_enqueue_rows", "ring_enqueue_keyed": "ring_enqueue_keyed_rows",
+    "ring_backstop": "ring_backstop_lanes", "ring_backstop_keyed": "ring_backstop_keyed_lanes",
+    "ring_drain": "ring_drain_step", "ring_drained": "ring_drained_rows",
+}
+HAND_KERNELS = (*FLIC_KERNELS, HASH, *RING_KERNELS)   # the fog tick's hand kernels
 
 
 
@@ -892,6 +914,119 @@ def kernel_phase(torch, device, cfgs, cycles_per_ms) -> dict:
     return out
 
 
+def ring_cells():
+    """The benchmark's three cells' configurations (``fogbench/configs``:
+    ``SimConfig``'s defaults at their node count, fan-out and mix), for the
+    writer ring's kernels: (config, tick whose ring calls are copied)."""
+    from repro_torch.core import workload as wl
+    from repro_torch.core.simulator import SimConfig
+
+    ycsb = wl.WorkloadSpec(popularity="trace", key_universe=1024,
+                           trace=wl.TraceSpec(source="ycsb", read_fraction=0.5,
+                                              zipf_alpha=0.99, length=201))
+    return {
+        "dense1k_ycsb_a": (SimConfig(n_nodes=1000, workload=ycsb), 200),
+        "city10k_zipf": (SimConfig(n_nodes=10_000, workload=wl.WorkloadSpec(
+            popularity="zipf", key_universe=4096, zipf_alpha=0.9, fanout=32)), 60),
+        "dense1k_stream": (SimConfig(n_nodes=1000, workload=wl.WorkloadSpec(
+            popularity="stream")), 200),
+    }
+
+
+def ring_work(name: str, args) -> tuple[int, int, dict]:
+    """Bytes the ring call ``name`` needs (each input read once, each output
+    written once: an enqueue reads the parent ring and writes its copy; a
+    keyed backstop gathers a slot and a durable timestamp a lane) and its
+    operations (a few a lane, never the bound)."""
+    def size(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    if name in ("ring_enqueue", "ring_enqueue_keyed"):
+        keyed = name == "ring_enqueue_keyed"
+        lanes = args[-1].numel()
+        written = size(*args[:3]) + (size(args[6]) + 16 if keyed else 12)
+        read = size(*(a for a in args if isinstance(a, type(args[0]))))
+    elif name == "ring_backstop":
+        lanes = args[-1].numel()
+        read, written = size(args[0], args[1], args[3], args[4], args[5], args[6]), 5 * lanes
+    elif name == "ring_backstop_keyed":
+        lanes = args[-1].numel()
+        read = size(args[0], args[1], args[4], args[6], args[7]) + 8 * lanes
+        written = 8 * lanes
+    elif name == "ring_drained":
+        lanes = int(args[-1])
+        read, written = 8 + 8 * lanes, 9 * lanes
+    else:                                  # ring_drain: seven scalars in, six out
+        lanes, read, written = 1, 25, 24
+    return read + written, 16 * lanes, dict(lanes=lanes, bytes_read=read,
+                                            bytes_written=written)
+
+
+def ring_kernel_phase(torch, device, cycles_per_ms) -> dict:
+    """The writer ring's kernels (``csrc/ring.cu``) on the calls of one tick
+    of each benchmark cell at its full size (``ring_cells``): each call
+    bitwise against its plain version on the same inputs, one launch, the
+    inputs unchanged; both timed with CUDA events, the L2 cache flushed
+    before each run, beside the bound of the bytes they need."""
+    from repro_torch.core.simulator import run_sim
+    from repro_torch.kernels import ops, ref
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)   # > the 50 MB L2
+    res = {}
+    for cell, (cfg, tick) in ring_cells().items():
+        real = {name: getattr(ops, name) for name in ops.RING_ENTRIES}
+        got, calls = {}, dict.fromkeys(ops.RING_ENTRIES, 0)
+
+        def spy(name):
+            def call(*args):
+                if calls[name] == tick:
+                    got[name] = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+                calls[name] += 1
+                return real[name](*args)
+            return call
+
+        for name in ops.RING_ENTRIES:
+            setattr(ops, name, spy(name))
+        try:
+            run_sim(dataclasses.replace(cfg, probe_backend="cuda"), tick + 1, seed=0,
+                    device=device)
+        finally:
+            for name, fn in real.items():
+                setattr(ops, name, fn)
+        for name, args in got.items():
+            before = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+            ops.reset_launches()
+            out = getattr(ops, name)(*args)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            want = getattr(ref, f"{name}_ref")(*args)
+            for i, (g, w) in enumerate(zip(out, want)):
+                bits = (lambda t: t.view(torch.int32)) if g.dtype == torch.float32 else (lambda t: t)
+                if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(bits(g), bits(w)):
+                    raise AssertionError(f"{name} {cell}: output {i} differs from the plain version")
+            if launches != {name: 1} or not all(
+                    not isinstance(a, torch.Tensor) or torch.equal(a, b)
+                    for a, b in zip(args, before)):
+                raise AssertionError(f"{name} {cell}: launches {launches}, or an input changed")
+
+            def fresh(args=args):
+                flush.zero_()
+                return args
+
+            nbytes, ops_n, info = ring_work(name, args)
+            b_ms, b_by = bound(nbytes, ops_n)
+            res[f"{name}:{cell}_t{tick}"] = dict(
+                info, launches_per_call=launches, ms=time_ms(torch, getattr(ops, name), fresh, cycles_per_ms),
+                plain_ms=time_ms(torch, getattr(ref, f"{name}_ref"), fresh, cycles_per_ms),
+                bound_ms=b_ms, bound_by=b_by)
+        keyed = cfg.workload.mutable
+        want = {"ring_drain", *(("ring_enqueue_keyed", "ring_backstop_keyed", "ring_drained")
+                                if keyed else ("ring_enqueue", "ring_backstop"))}
+        if set(got) != want:
+            raise AssertionError(f"ring {cell}: calls {sorted(got)}, expected {sorted(want)}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-6: the engine.
 # ---------------------------------------------------------------------------
@@ -909,36 +1044,53 @@ def series_equal(torch, a, b, label: str) -> None:
 
 def timed_run(torch, cfg, ticks, backend, device):
     """``cfg`` for ``ticks`` ticks with FLIC backend ``backend``; the inline
-    run (``None``) hashes payloads with the plain version too (the hash's
-    wrapper follows the device alone), so that it is plain throughout."""
+    run (``None``) also hashes payloads and runs the writer ring with the
+    plain versions (their wrappers follow the device alone), so that it is
+    plain throughout."""
     from repro_torch.core.simulator import run_sim
     from repro_torch.kernels import ops, ref
 
     cfg = dataclasses.replace(cfg, probe_backend=backend)
-    real_hash = ops.payload_hash
+    real = {name: getattr(ops, name) for name in (HASH, *RING_KERNELS)}
     if backend is None:
-        ops.payload_hash = ref.payload_hash_ref
+        for name in real:
+            setattr(ops, name, getattr(ref, f"{name}_ref"))
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
         _, series = run_sim(cfg, ticks, seed=0, device=device)
     finally:
-        ops.payload_hash = real_hash
+        for name, fn in real.items():
+            setattr(ops, name, fn)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     return series, ticks / secs, dict(ops.LAUNCHES)
 
 
+def ring_per_tick(cfg) -> dict:
+    """The writer ring's launches a tick of ``sim_tick`` on ``cfg``, by
+    entry: on a mutable mix the keyed enqueue once a write wave, the keyed
+    backstop and the drained rows' gather, otherwise the FIFO enqueue and
+    backstop; the drain on both; the other path's entries never."""
+    spec = cfg.workload
+    if spec.mutable:
+        on = {"ring_enqueue_keyed": spec.plan_waves, "ring_backstop_keyed": 1, "ring_drained": 1}
+    else:
+        on = {"ring_enqueue": 1, "ring_backstop": 1}
+    return {name: on.get(name, 0) for name in RING_KERNELS} | {"ring_drain": 1}
+
+
 def replay_kernels(cfg) -> tuple[str, ...]:
-    """The FLIC kernels a run of ``cfg`` with ``probe_backend="cuda"`` must
+    """The hand kernels a run of ``cfg`` with ``probe_backend="cuda"`` must
     launch: the upsert always, the sweep on mutable workloads, the probe
-    where it is dense."""
+    where it is dense, the writer ring's entries of its path."""
     need = ["flic_insert"]
     if cfg.workload.mutable and cfg.insert_policy == "directory":
         need.append("flic_update")
     if cfg.workload.fanout is None:
         need.append("flic_lookup")
+    need += [name for name, n in ring_per_tick(cfg).items() if n]
     return tuple(need)
 
 
@@ -1056,7 +1208,8 @@ def tick_profile(torch, device, cfg, ticks_per_s: float, ticks: int = 20) -> dic
         device_idle_share=1.0 - busy_ms / tick_ms,
         kernel_launches_per_tick=sum(e.count for e in kernels) / ticks,
         hand_kernels_ms_per_tick={
-            name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3 / ticks
+            name: sum(e.self_device_time_total for e in kernels
+                      if RING_KERNELS.get(name, name) in e.key) / 1e3 / ticks
             for name in HAND_KERNELS
         },
         top_kernels_ms_per_tick=[[e.key[:80], e.self_device_time_total / 1e3 / ticks]
@@ -4136,30 +4289,42 @@ def main() -> None:
     kres = kernel_phase(torch, device, cfgs, cycles_per_ms)
     emit("kernels", bitwise_equal=True, spin_cycles_per_ms=cycles_per_ms,
          launch_floor_ms=launch_floor_ms, **kres)
+    if tuple(RING_KERNELS) != ops.RING_ENTRIES:
+        raise AssertionError(f"RING_KERNELS {tuple(RING_KERNELS)} != ops.RING_ENTRIES")
+    rres = ring_kernel_phase(torch, device, cycles_per_ms)
+    emit("kernels", kernel="ring", bitwise_equal=True, spin_cycles_per_ms=cycles_per_ms,
+         launch_floor_ms=launch_floor_ms, **rres)
 
     elapsed("kernels")
     replays = replay_phase(torch, device)
     elapsed("replay")
 
     cell_launches = {}
+    # The writer ring's entries: exactly those of each cell's path, once a
+    # tick (the keyed enqueue once a write wave), the other path's never.
     cell_launches["dense"], _, dense_series = engine_phase(
-        torch, device, "dense", dense_cfg, 600, HAND_KERNELS, per_tick={HASH: 2})
-    cell_launches["city"], city, _ = engine_phase(torch, device, "city", city_cfg, 120,
-                                                  ("flic_insert", HASH), per_tick={HASH: 2})
+        torch, device, "dense", dense_cfg, 600, (*FLIC_KERNELS, HASH),
+        per_tick={HASH: 2, **ring_per_tick(dense_cfg)})
+    cell_launches["city"], city, _ = engine_phase(
+        torch, device, "city", city_cfg, 120, ("flic_insert", HASH),
+        per_tick={HASH: 2, **ring_per_tick(city_cfg)})
     if city["queue_dropped"] <= 0:
         raise AssertionError("city: the writer ring was expected to overflow")
     n = replicate_cfg.n_nodes
     cell_launches["replicate"], _, _ = engine_phase(
         torch, device, "replicate", replicate_cfg, 30, ("flic_insert", "flic_lookup"),
-        per_tick={"flic_insert": n + 1, "flic_update": 0, "flic_lookup": 1, HASH: 2},
+        per_tick={"flic_insert": n + 1, "flic_update": 0, "flic_lookup": 1, HASH: 2,
+                  **ring_per_tick(replicate_cfg)},
         profile_ticks=5)    # ~2,500 launches a tick: 5 ticks keep the trace short
     cell_launches["poisson"], _, _ = engine_phase(
-        torch, device, "poisson", poisson_cfg, 300, HAND_KERNELS,
-        per_tick={"flic_insert": 5, "flic_update": 4, "flic_lookup": 1, HASH: 5})
+        torch, device, "poisson", poisson_cfg, 300, (*FLIC_KERNELS, HASH),
+        per_tick={"flic_insert": 5, "flic_update": 4, "flic_lookup": 1, HASH: 5,
+                  **ring_per_tick(poisson_cfg)})
     trace_on_card(torch, device, trace_cfg)
     cell_launches["trace"], _, _ = engine_phase(
-        torch, device, "trace", trace_cfg, 300, HAND_KERNELS,
-        per_tick={"flic_insert": 2, "flic_update": 1, "flic_lookup": 1, HASH: 2})
+        torch, device, "trace", trace_cfg, 300, (*FLIC_KERNELS, HASH),
+        per_tick={"flic_insert": 2, "flic_update": 1, "flic_lookup": 1, HASH: 2,
+                  **ring_per_tick(trace_cfg)})
     elapsed("engine cells")
     reference_phase(torch, device, replays)
     elapsed("reference")
@@ -4247,19 +4412,22 @@ def main() -> None:
     emit("new_phases", seconds=time.perf_counter() - t_new + costs["waited_s"])
     elapsed("shard, dryrun and roofline")
 
-    # Headline case of each FLIC kernel and of payload_hash: the first
-    # main-path case of the kernels phase.  Launches: the main path's kernel
-    # runs of the five engine cells (dense, city, replicate, poisson, trace)
-    # and of the multi-rank engines, each counted from 0.  max_abs_err is 0:
-    # each of them passed a bitwise comparison.  paged_attention: the Granite serve run's launches and
-    # InternVL2's paged run's, its headline the Granite serve step's inputs,
-    # its error the largest over all its cases and checked calls.
+    # Headline case of each FLIC kernel, of payload_hash and of each ring
+    # entry: the first main-path case of the kernels phase (the ring's:
+    # the first cell of ring_cells that calls it).  Launches: the main
+    # path's kernel runs of the five engine cells (dense, city, replicate,
+    # poisson, trace) and of the multi-rank engines, each counted from 0.
+    # max_abs_err is 0: each of them passed a bitwise comparison.
+    # paged_attention: the Granite serve run's launches and InternVL2's
+    # paged run's, its headline the Granite serve step's inputs, its error
+    # the largest over all its cases and checked calls.
     lines = []
     for name in HAND_KERNELS:
-        head = next(iter(kres[name].values()))
+        cases = kres.get(name) or {k: v for k, v in rres.items() if k.split(":")[0] == name}
+        head = next(iter(cases.values()))
         lines.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{ops.SOURCE.get(name, name)}.cu",
             "replaces": REPLACES[name],
             "launches": sum(c[name] for c in cell_launches.values()),
             "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -12,7 +12,7 @@ from typing import Literal
 
 import torch
 
-from repro_torch.core.writeback import max_drop
+from repro_torch.kernels.ref import max_drop
 
 
 @dataclasses.dataclass(frozen=True)

@@ -85,7 +85,7 @@ from repro_torch.core.simulator import (
     needs_delivery_mask,
     resolve_device,
 )
-from repro_torch.kernels.ref import _first_true
+from repro_torch.kernels.ref import _first_true, max_drop
 
 I32, F32 = torch.int32, torch.float32
 BACKENDS = ("gloo", "nccl")
@@ -308,7 +308,7 @@ def fog_shard_tick(cfg: SimConfig, group: FogGroup, state: FogShardState,
         for p, rows in enumerate(rows_waves):
             queue, _ = wb.enqueue_keyed(queue, plan.w_kids[p], rows.data_ts,
                                         rows.origin, plan.w_valid[p])
-            latest_ts = wb.max_drop(
+            latest_ts = max_drop(
                 latest_ts, torch.where(plan.w_valid[p], plan.w_kids[p], spec.key_universe),
                 rows.data_ts,
             )

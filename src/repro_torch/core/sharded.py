@@ -63,6 +63,7 @@ from repro_torch.core.simulator import (
     _sum,
     resolve_device,
 )
+from repro_torch.kernels.ref import max_drop, set_drop
 
 I32, F32 = torch.int32, torch.float32
 N_PARTIALS = 22   # scalars in the closing psum
@@ -291,9 +292,9 @@ def sharded_fog_tick(cfg: SimConfig, group: FogGroup, state: ShardedFogState,
     h_home = wl.route_keys(spec, n, t, hk)
     h_ts = torch.full(hk.shape, t, dtype=I32, device=dev)
     queue, _ = wb.enqueue_keyed(state.queue, hk, h_ts, h_home, hv)
-    latest_ts = wb.max_drop(latest_ts, torch.where(hv, hk, ku), h_ts)
+    latest_ts = max_drop(latest_ts, torch.where(hv, hk, ku), h_ts)
     # ... and a lower-bound truth for this shard's own writes, homed anywhere.
-    latest_ts = wb.max_drop(latest_ts, torch.where(w_valid, kids_w, ku), t_full)
+    latest_ts = max_drop(latest_ts, torch.where(w_valid, kids_w, ku), t_full)
 
     # The home node caches the key, so reads routed here find it.
     h_keys = wl.key_hash(hk)
@@ -383,9 +384,9 @@ def sharded_fog_tick(cfg: SimConfig, group: FogGroup, state: ShardedFogState,
             [a_served.to(I32).reshape(p - 1, c_r), a_served_ts.reshape(p - 1, c_r)], dim=1)
         answers = ppermute(group, back)[p - torch.arange(1, p, device=dev)]   # my bucket o's
         live = queries[1:, 1] != 0
-        home_served_l = wb.set_drop(home_served_l, q_rdr[1:].reshape(-1),
-                                    ((answers[:, 0] != 0) & live).reshape(-1))
-        home_ts_l = wb.set_drop(home_ts_l, q_rdr[1:].reshape(-1), answers[:, 1].reshape(-1))
+        home_served_l = set_drop(home_served_l, q_rdr[1:].reshape(-1),
+                                 ((answers[:, 0] != 0) & live).reshape(-1))
+        home_ts_l = set_drop(home_ts_l, q_rdr[1:].reshape(-1), answers[:, 1].reshape(-1))
 
     store = dataclasses.replace(store_in, api_calls=store_in.api_calls + _sum(sr0))
     wan_rx_l = n_store_reads_l.to(F32) * cfg.store.read_txn_bytes(store_in.drained_total)

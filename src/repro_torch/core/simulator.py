@@ -53,6 +53,8 @@ from repro_torch.core.flic import (
 )
 from repro_torch.core.metrics import TickMetrics, windowed_loop
 from repro_torch.core.tracing import span
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import max_drop, set_drop
 
 I32, F32 = torch.int32, torch.float32
 
@@ -253,8 +255,8 @@ def _response_mask_dense(cfg: SimConfig, channel, plan: wl.RequestPlan, nbr,
             lanes = torch.ones((plan.slot_nid.shape[0], cfg.workload.fanout),
                                dtype=torch.bool, device=plan.slot_nid.device)
         rows = _expand_lanes_dense(lanes, nbr[plan.slot_nid.long()], n)
-    return wb.set_drop(torch.zeros((n, n), dtype=torch.bool, device=rows.device),
-                       plan.slot_id, rows)
+    return set_drop(torch.zeros((n, n), dtype=torch.bool, device=rows.device),
+                    plan.slot_id, rows)
 
 
 # --------------------------------------------------------------------------
@@ -264,33 +266,18 @@ def _response_mask_dense(cfg: SimConfig, channel, plan: wl.RequestPlan, nbr,
 def _resolve_backstop(queue: wb.WriteQueue, store: bs.StoreState, healthy,
                       need_store, enq_idx):
     """Route fog-missed reads (FIFO index durability): returns (queue_hit,
-    store_read, failed, found, in_store)."""
-    in_pending = (enq_idx >= queue.head) & (enq_idx < queue.tail)
-    in_ring = (enq_idx >= queue.tail - queue.capacity) & (enq_idx < queue.tail)
-    queue_hit = need_store & (in_pending | (~healthy & in_ring))
-    store_read = need_store & ~queue_hit & healthy
-    failed = need_store & ~queue_hit & ~healthy
-    in_store = enq_idx < store.drained_total
-    return queue_hit, store_read, failed, store_read & in_store, in_store
+    store_read, failed, found, in_store).  One ``ops.ring_backstop``."""
+    return ops.ring_backstop(queue.head, queue.tail, queue.capacity, healthy,
+                             store.drained_total, need_store, enq_idx)
 
 
 def _resolve_backstop_keyed(queue: wb.WriteQueue, store: bs.StoreState, healthy,
                             need_store, key_ids):
     """Keyed-durability routing: returns (queue_hit, store_read, failed,
-    found, served_ts), ``served_ts`` the version served (-1: none)."""
-    ku = queue.key_universe
-    kid = key_ids.clamp(0, ku - 1).long()
-    slot = queue.slot_of_key[kid]
-    in_pending = (slot >= queue.head) & (slot < queue.tail)
-    in_ring = (slot >= 0) & (slot >= queue.tail - queue.capacity) & (slot < queue.tail)
-    queue_hit = need_store & (in_pending | (~healthy & in_ring))
-    store_read = need_store & ~queue_hit & healthy
-    failed = need_store & ~queue_hit & ~healthy
-    durable_ts = store.table_ts[kid]
-    found = store_read & (durable_ts >= 0)
-    ring_ts = queue.data_ts[(slot.clamp(min=0) % queue.capacity).long()]
-    served_ts = torch.where(queue_hit, ring_ts, torch.where(found, durable_ts, -1))
-    return queue_hit, store_read, failed, found, served_ts
+    found, served_ts), ``served_ts`` the version served (-1: none).  One
+    ``ops.ring_backstop_keyed``."""
+    return ops.ring_backstop_keyed(queue.head, queue.tail, queue.slot_of_key, queue.data_ts,
+                                   healthy, store.table_ts, need_store, key_ids)
 
 
 # --------------------------------------------------------------------------
@@ -453,7 +440,7 @@ def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimStat
                 with span("ring.enqueue"):
                     queue, _ = wb.enqueue_keyed(queue, plan.w_kids[p], rows.data_ts,
                                                 rows.origin, plan.w_valid[p])
-                latest_ts = wb.max_drop(
+                latest_ts = max_drop(
                     latest_ts, torch.where(plan.w_valid[p], plan.w_kids[p], spec.key_universe),
                     rows.data_ts,
                 )
@@ -588,7 +575,7 @@ def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimStat
                 fog_hit_slot[:, None], best_payload_slot,
                 wl.versioned_payload(keys_q, served_ts_slot, cfg.payload_dim),
             )
-            fill_ts = wb.set_drop(
+            fill_ts = set_drop(
                 torch.full((n,), -1, dtype=I32, device=dev), r_ids,
                 torch.where(fog_hit_slot, best_ts_slot, served_ts_slot),
             )
@@ -598,7 +585,7 @@ def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimStat
                 fog_hit_slot[:, None], best_payload_slot,
                 wl.payload_for(keys_q, cfg.payload_dim),
             )
-            fill_ts = wb.set_drop(
+            fill_ts = set_drop(
                 plan.r_fill_ts, r_ids,
                 torch.where(fog_hit_slot, best_ts_slot, plan.r_fill_ts[r_gidx]),
             )
@@ -607,10 +594,10 @@ def sim_tick(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[SimStat
             key=r_keys,
             data_ts=fill_ts,
             origin=fill_origin,
-            data=wb.set_drop(torch.zeros((n, cfg.payload_dim), dtype=F32, device=dev),
-                             r_ids, slot_payload),
-            valid=wb.set_drop(torch.zeros((n,), dtype=torch.bool, device=dev), r_ids,
-                              fill_ok_slot),
+            data=set_drop(torch.zeros((n, cfg.payload_dim), dtype=F32, device=dev),
+                          r_ids, slot_payload),
+            valid=set_drop(torch.zeros((n,), dtype=torch.bool, device=dev), r_ids,
+                           fill_ok_slot),
             dirty=torch.zeros((n,), dtype=torch.bool, device=dev),
         )
         caches, _ = insert_rows(caches, fill_lines, t, backend=cfg.probe_backend)

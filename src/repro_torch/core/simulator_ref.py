@@ -41,7 +41,7 @@ from repro_torch.core.simulator import (
     _sum,
     needs_delivery_mask,
 )
-from repro_torch.kernels.ref import _first_true
+from repro_torch.kernels.ref import _first_true, max_drop
 
 I32, F32 = torch.int32, torch.float32
 
@@ -103,7 +103,7 @@ def sim_tick_ref(cfg: SimConfig, state: SimState, draws: TickDraws) -> tuple[Sim
         for p, rows in enumerate(rows_waves):
             queue, _ = wb.enqueue_keyed(queue, plan.w_kids[p], rows.data_ts,
                                         rows.origin, plan.w_valid[p])
-            latest_ts = wb.max_drop(
+            latest_ts = max_drop(
                 latest_ts, torch.where(plan.w_valid[p], plan.w_kids[p], spec.key_universe),
                 rows.data_ts,
             )

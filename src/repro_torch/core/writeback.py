@@ -5,9 +5,10 @@ under a token bucket and binary exponential backoff.  The keyed mode
 (``key_universe > 0``) adds a per-key slot map and coalesces a re-write of
 a still-pending key into its ring slot.
 
-JAX routes dead lanes of a scatter to an out-of-bounds slot that
-``mode="drop"`` discards.  PyTorch has no such mode, so ``set_drop`` and
-``max_drop`` scatter into one extra sink slot and slice it off.
+Each call is one entry of ``kernels/ops.py`` (``ring_enqueue``,
+``ring_enqueue_keyed``, ``ring_drain``, ``ring_drained``): one launch of
+``csrc/ring.cu`` on CUDA tensors, the plain versions of ``kernels/ref.py``
+on CPU tensors.
 """
 from __future__ import annotations
 
@@ -15,27 +16,7 @@ import dataclasses
 
 import torch
 
-
-def set_drop(buf: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """``buf.at[idx].set(vals, mode="drop")`` for indices in [0, len] — index
-    ``len(buf)`` and above are dropped.  Live indices must be unique."""
-    n = buf.shape[0]
-    ext = torch.cat([buf, buf[:1]])
-    ext[idx.long().clamp(max=n)] = vals.to(buf.dtype)
-    return ext[:n]
-
-
-def max_drop(buf: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """``buf.at[idx].max(vals, mode="drop")`` for indices >= 0; index
-    ``len(buf)`` and above are dropped.  Duplicates merge under max."""
-    n = buf.shape[0]
-    ext = torch.cat([buf, buf[:1]])
-    ext.scatter_reduce_(0, idx.long().clamp(max=n), vals.to(buf.dtype), "amax")
-    return ext[:n]
-
-
-def _sum_i32(mask: torch.Tensor) -> torch.Tensor:
-    return mask.sum(dtype=torch.int32)
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,23 +66,11 @@ def empty_queue(capacity: int, key_universe: int = 0, device=None) -> WriteQueue
 def enqueue(q: WriteQueue, keys, data_ts, origin, mask):
     """Push the masked entries in order; overflow drops the newest.  Returns
     (queue, n_accepted)."""
-    cap = q.capacity
-    offs = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
-    free = cap - (q.tail - q.head)
-    accept = mask & (offs < free)
-    n_accept = _sum_i32(accept)
-    slots = torch.where(accept, (q.tail + offs) % cap, cap)
-    return (
-        dataclasses.replace(
-            q,
-            keys=set_drop(q.keys, slots, keys),
-            data_ts=set_drop(q.data_ts, slots, data_ts),
-            origin=set_drop(q.origin, slots, origin),
-            tail=q.tail + n_accept,
-            dropped=q.dropped + _sum_i32(mask & ~accept),
-        ),
-        n_accept,
-    )
+    new_keys, new_ts, new_origin, tail, dropped, n_accept = ops.ring_enqueue(
+        q.keys, q.data_ts, q.origin, q.head, q.tail, q.dropped, keys, data_ts, origin, mask)
+    return (dataclasses.replace(q, keys=new_keys, data_ts=new_ts, origin=new_origin, tail=tail,
+                                dropped=dropped),
+            n_accept)
 
 
 def drain(q: WriteQueue, now: int, store_ok: torch.Tensor, rate_per_tick: float,
@@ -110,28 +79,12 @@ def drain(q: WriteQueue, now: int, store_ok: torch.Tensor, rate_per_tick: float,
     """One writer tick: drain one batch of up to ``max_per_tick`` rows (one
     API call).  On a failed attempt nothing drains and the backoff doubles.
     Returns (queue, n_rows_drained, n_api_calls)."""
-    tokens = torch.clamp(q.tokens + rate_per_tick, max=burst)
-    can_try = (now >= q.next_retry) & (tokens >= 1.0)
-    size = q.size()
-    attempt = can_try & (size > 0)
-    ok = attempt & store_ok
-    n = torch.where(ok, torch.clamp(size, max=max_per_tick), 0)
-    calls = attempt.to(torch.int32)
-    failed = attempt & ~store_ok
-    new_backoff = torch.where(
-        failed,
-        torch.clamp(torch.clamp(q.backoff * 2, min=backoff_base), max=backoff_max),
-        torch.where(ok, 0, q.backoff),
-    )
-    next_retry = torch.where(failed, now + new_backoff, q.next_retry)
-    q = dataclasses.replace(
-        q,
-        head=q.head + n,
-        tokens=tokens - calls.to(torch.float32),
-        backoff=new_backoff,
-        next_retry=next_retry,
-    )
-    return q, n, calls
+    head, tokens, backoff, next_retry, n, calls = ops.ring_drain(
+        q.head, q.tail, q.tokens, q.backoff, q.next_retry, now, store_ok, rate_per_tick, burst,
+        max_per_tick, backoff_base, backoff_max)
+    return (dataclasses.replace(q, head=head, tokens=tokens, backoff=backoff,
+                                next_retry=next_retry),
+            n, calls)
 
 
 def enqueue_keyed(q: WriteQueue, key_ids, data_ts, origin, mask):
@@ -141,53 +94,14 @@ def enqueue_keyed(q: WriteQueue, key_ids, data_ts, origin, mask):
     a PENDING slot is updated in place; otherwise the write is appended and
     the slot map records its monotone index.  Returns (queue, n_appended).
     """
-    cap = q.capacity
-    ku = q.key_universe
-    if ku <= 0:
+    if q.key_universe <= 0:
         raise ValueError("enqueue_keyed requires empty_queue(..., key_universe=K)")
-    kid = key_ids.to(torch.int32)
-    r = kid.shape[0]
-    order = torch.arange(r, dtype=torch.int32, device=kid.device)
-    kid_safe = kid.clamp(0, ku - 1).long()
-
-    # In-batch dedup: lane i survives iff it is the LAST masked lane of its key.
-    last_of_key = max_drop(
-        torch.full((ku,), -1, dtype=torch.int32, device=kid.device),
-        torch.where(mask, kid, ku), order,
-    )
-    rep = mask & (last_of_key[kid_safe] == order)
-
-    # Cross-tick coalesce: representative lanes whose key is still pending.
-    slot = q.slot_of_key[kid_safe]
-    pending = rep & (slot >= q.head) & (slot < q.tail)
-    fresh = rep & ~pending
-    upd_slot = torch.where(pending, slot % cap, cap)
-
-    # Append the fresh representatives (the overflow policy of ``enqueue``).
-    offs = torch.cumsum(fresh.to(torch.int32), 0, dtype=torch.int32) - 1
-    free = cap - (q.tail - q.head)
-    accept = fresh & (offs < free)
-    n_accept = _sum_i32(accept)
-    slots = torch.where(accept, (q.tail + offs) % cap, cap)
-
-    def write(buf, vals):
-        return set_drop(set_drop(buf, upd_slot, vals), slots, vals)
-
-    n_coalesced = _sum_i32(mask & ~rep) + _sum_i32(pending)
-    return (
-        dataclasses.replace(
-            q,
-            keys=write(q.keys, kid),
-            data_ts=write(q.data_ts, data_ts),
-            origin=write(q.origin, origin),
-            tail=q.tail + n_accept,
-            dropped=q.dropped + _sum_i32(fresh & ~accept),
-            slot_of_key=set_drop(q.slot_of_key, torch.where(accept, kid, ku),
-                                 q.tail + offs),
-            coalesced=q.coalesced + n_coalesced,
-        ),
-        n_accept,
-    )
+    keys, ts, origin, tail, dropped, slot_of_key, coalesced, n_accept = ops.ring_enqueue_keyed(
+        q.keys, q.data_ts, q.origin, q.head, q.tail, q.dropped, q.slot_of_key, q.coalesced,
+        key_ids, data_ts, origin, mask)
+    return (dataclasses.replace(q, keys=keys, data_ts=ts, origin=origin, tail=tail,
+                                dropped=dropped, slot_of_key=slot_of_key, coalesced=coalesced),
+            n_accept)
 
 
 def ring_accounting(q: WriteQueue) -> dict:
@@ -205,6 +119,4 @@ def ring_accounting(q: WriteQueue) -> dict:
 def drained_entries(q: WriteQueue, n_drained: torch.Tensor, max_per_tick: int):
     """(key, data_ts, live) of the rows drained by the LAST ``drain``; ``q``
     is the queue after it.  Static shape ``(max_per_tick,)``."""
-    lane = torch.arange(max_per_tick, dtype=torch.int32, device=q.keys.device)
-    idx = ((q.head - n_drained + lane) % q.capacity).long()
-    return q.keys[idx], q.data_ts[idx], lane < n_drained
+    return ops.ring_drained(q.keys, q.data_ts, q.head, n_drained, max_per_tick)

@@ -10,10 +10,12 @@ through the kernel or the call raises.
 The FLIC kernels update the cache tables IN PLACE (``flic_insert`` all
 eight, ``flic_update`` ``data_ts``/``last_use``/``data``) and return those
 same tensors; the plain versions return new ones.  ``flic_merge``,
-``paged_attention``, ``ssd_scan`` and ``payload_hash`` allocate their
-outputs.  ``payload_hash`` is the fog tick's payload hash
-(``core/workload.py``'s ``payload_for`` and ``versioned_payload``); like
-``ssd_scan_bwd`` it replaces no Pallas kernel (XLA fuses the hash there).
+``paged_attention``, ``ssd_scan``, ``payload_hash`` and the ``ring_*``
+entries allocate their outputs.  ``payload_hash`` is the fog tick's payload
+hash (``core/workload.py``'s ``payload_for`` and ``versioned_payload``); the
+six ``ring_*`` entries of ``csrc/ring.cu`` are the calls of the fog tick's
+writer ring (``core/writeback.py``, ``simulator._resolve_backstop{,_keyed}``).
+Like ``ssd_scan_bwd`` they replace no Pallas kernel (XLA fuses them there).
 
 ``flic_insert``, ``flic_lookup`` and ``flic_merge`` launch the
 instantiation of their kernel that ``insert_plan_for`` /
@@ -23,7 +25,8 @@ and alignment; ``paged_attention`` copies K/V rows in the unit that
 
 ``LAUNCHES[name]`` counts the calls that launched kernel ``name``.
 ``ssd_scan_bwd`` (the gradient of ``ssd_scan``, through ``SSDScan``) is
-the second entry of ``csrc/ssd_scan.cu``, counted under its own name.
+the second entry of ``csrc/ssd_scan.cu``, counted under its own name, as
+each ``ring_*`` entry of ``csrc/ring.cu`` is (``SOURCE``).
 """
 from __future__ import annotations
 
@@ -31,16 +34,20 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
 
+RING_ENTRIES = ("ring_enqueue", "ring_enqueue_keyed", "ring_backstop", "ring_backstop_keyed",
+                "ring_drain", "ring_drained")
 LAUNCHES: dict[str, int] = {
     "flic_insert": 0, "flic_update": 0, "flic_lookup": 0, "flic_merge": 0,
     "paged_attention": 0, "ssd_scan": 0, "ssd_scan_bwd": 0, "payload_hash": 0,
+    **{name: 0 for name in RING_ENTRIES},
 }
 # Launch names whose entry lives in another kernel's source.
-SOURCE = {"ssd_scan_bwd": "ssd_scan"}
+SOURCE = {"ssd_scan_bwd": "ssd_scan", **{name: "ring" for name in RING_ENTRIES}}
 
 
 def reset_launches() -> None:
@@ -345,6 +352,162 @@ def payload_hash(key, data_ts, dim: int):
 def _i32_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` as a 1-D int32 tensor: a view where it is int32 and contiguous."""
     return (t if t.dtype == I32 else t.to(I32)).contiguous().view(-1)
+
+
+# The writer ring (csrc/ring.cu).  Each entry takes the ring's tensors and
+# returns new ones (the parent ring is never written): on CUDA, views of an
+# output buffer for the ring's arrays and of a small one for its scalars
+# (a tick's metrics keep scalars; they must not keep the ring).  Lane values
+# the plain version casts to int32 are cast here too (no launch where they
+# are int32 already).
+
+def _scalars(**scalars) -> dict:
+    """``name=(tensor, dtype)`` of 0-d tensors -> the ``_check`` entries."""
+    return {name: (t, dtype, ()) for name, (t, dtype) in scalars.items()}
+
+
+def ring_enqueue(keys, data_ts, origin, head, tail, dropped, in_keys, in_ts, in_origin, mask):
+    """FIFO push of the masked lanes, overflow dropping the newest; see
+    ``ref.ring_enqueue_ref``.  Returns new (keys, data_ts, origin, tail,
+    dropped, n_accepted)."""
+    if not _on_cuda(keys):
+        return ref.ring_enqueue_ref(keys, data_ts, origin, head, tail, dropped, in_keys, in_ts,
+                                    in_origin, mask)
+    q, r = keys.shape[0], mask.shape[0]
+    in_keys, in_ts, in_origin = (_i32_rows(t) for t in (in_keys, in_ts, in_origin))
+    dev = keys.device
+    _check(dev, keys=(keys, I32, (q,)), data_ts=(data_ts, I32, (q,)), origin=(origin, I32, (q,)),
+           in_keys=(in_keys, I32, (r,)), in_ts=(in_ts, I32, (r,)),
+           in_origin=(in_origin, I32, (r,)), mask=(mask, BOOL, (r,)),
+           **_scalars(head=(head, I32), tail=(tail, I32), dropped=(dropped, I32)))
+    ring = torch.empty((3, q), dtype=I32, device=dev)
+    scalars = torch.empty((3,), dtype=I32, device=dev)
+    _launch("ring_enqueue", dev,
+            (keys, data_ts, origin, head, tail, dropped, in_keys, in_ts, in_origin, mask, ring,
+             scalars),
+            (q, r))
+    return (*ring.unbind(), *scalars.unbind())
+
+
+def ring_enqueue_keyed(keys, data_ts, origin, head, tail, dropped, slot_of_key, coalesced,
+                       key_ids, in_ts, in_origin, mask):
+    """Keyed push: in-batch dedup, coalescing into pending slots, append;
+    see ``ref.ring_enqueue_keyed_ref``.  Returns new (keys, data_ts, origin,
+    tail, dropped, slot_of_key, coalesced, n_appended).  On CUDA at most
+    393,216 lanes (the kernel keeps a bit a lane in 48 KB of shared memory;
+    its launcher refuses more)."""
+    if not _on_cuda(keys):
+        return ref.ring_enqueue_keyed_ref(keys, data_ts, origin, head, tail, dropped,
+                                          slot_of_key, coalesced, key_ids, in_ts, in_origin,
+                                          mask)
+    q, ku, r = keys.shape[0], slot_of_key.shape[0], mask.shape[0]
+    key_ids, in_ts, in_origin = (_i32_rows(t) for t in (key_ids, in_ts, in_origin))
+    dev = keys.device
+    _check(dev, keys=(keys, I32, (q,)), data_ts=(data_ts, I32, (q,)), origin=(origin, I32, (q,)),
+           slot_of_key=(slot_of_key, I32, (ku,)), key_ids=(key_ids, I32, (r,)),
+           in_ts=(in_ts, I32, (r,)), in_origin=(in_origin, I32, (r,)), mask=(mask, BOOL, (r,)),
+           **_scalars(head=(head, I32), tail=(tail, I32), dropped=(dropped, I32),
+                      coalesced=(coalesced, I32)))
+    ring = torch.empty((3 * q + ku,), dtype=I32, device=dev)
+    scalars = torch.empty((4,), dtype=I32, device=dev)
+    _launch("ring_enqueue_keyed", dev,
+            (keys, data_ts, origin, head, tail, dropped, slot_of_key, coalesced, key_ids, in_ts,
+             in_origin, mask, ring, scalars),
+            (q, ku, r))
+    k, ts, org, slots = ring.split((q, q, q, ku))
+    tail, dropped, coalesced, n_accept = scalars.unbind()
+    return k, ts, org, tail, dropped, slots, coalesced, n_accept
+
+
+def ring_backstop(head, tail, capacity: int, healthy, drained_total, need_store, enq_idx):
+    """Fog-missed reads against the FIFO ring and the store; see
+    ``ref.ring_backstop_ref``.  Returns (queue_hit, store_read, failed,
+    found, in_store), (R,) bool."""
+    if not _on_cuda(need_store):
+        return ref.ring_backstop_ref(head, tail, capacity, healthy, drained_total, need_store,
+                                     enq_idx)
+    r = need_store.shape[0]
+    dev = need_store.device
+    _check(dev, need_store=(need_store, BOOL, (r,)), enq_idx=(enq_idx, I32, (r,)),
+           **_scalars(head=(head, I32), tail=(tail, I32), healthy=(healthy, BOOL),
+                      drained_total=(drained_total, I32)))
+    out = torch.empty((5, r), dtype=BOOL, device=dev)
+    _launch("ring_backstop", dev, (head, tail, healthy, drained_total, need_store, enq_idx, out),
+            (int(capacity), r))
+    return out.unbind()
+
+
+def ring_backstop_keyed(head, tail, slot_of_key, data_ts, healthy, table_ts, need_store,
+                        key_ids):
+    """Fog-missed reads against the keyed ring (its slot map and
+    ``data_ts``) and the store's ``(K,)`` table; see
+    ``ref.ring_backstop_keyed_ref``.  Returns (queue_hit, store_read,
+    failed, found) (R,) bool and served_ts (R,) int32."""
+    if not _on_cuda(need_store):
+        return ref.ring_backstop_keyed_ref(head, tail, slot_of_key, data_ts, healthy, table_ts,
+                                           need_store, key_ids)
+    q, ku, r = data_ts.shape[0], slot_of_key.shape[0], need_store.shape[0]
+    dev = need_store.device
+    _check(dev, slot_of_key=(slot_of_key, I32, (ku,)), data_ts=(data_ts, I32, (q,)),
+           table_ts=(table_ts, I32, (ku,)), need_store=(need_store, BOOL, (r,)),
+           key_ids=(key_ids, I32, (r,)),
+           **_scalars(head=(head, I32), tail=(tail, I32), healthy=(healthy, BOOL)))
+    flags = torch.empty((4, r), dtype=BOOL, device=dev)
+    served_ts = torch.empty((r,), dtype=I32, device=dev)
+    _launch("ring_backstop_keyed", dev,
+            (head, tail, slot_of_key, data_ts, healthy, table_ts, need_store, key_ids, flags,
+             served_ts),
+            (q, ku, r))
+    return (*flags.unbind(), served_ts)
+
+
+def _f32_bits(x: float) -> int:
+    """The bit pattern of ``x`` rounded to float32, as PyTorch rounds a
+    Python scalar into a float32 op, as a signed 32-bit int."""
+    return int(np.float32(x).view(np.int32))
+
+
+def _i32_arg(name: str, v: int) -> int:
+    if not -2**31 <= int(v) < 2**31:
+        raise ValueError(f"{name} = {v} is outside int32")
+    return int(v)
+
+
+def ring_drain(head, tail, tokens, backoff, next_retry, now: int, store_ok,
+               rate_per_tick: float, burst: float, max_per_tick: int, backoff_base: int,
+               backoff_max: int):
+    """One writer tick; see ``ref.ring_drain_ref``.  Returns new (head,
+    tokens, backoff, next_retry, n_rows_drained, n_api_calls)."""
+    if not _on_cuda(head):
+        return ref.ring_drain_ref(head, tail, tokens, backoff, next_retry, now, store_ok,
+                                  rate_per_tick, burst, max_per_tick, backoff_base, backoff_max)
+    dev = head.device
+    _check(dev, **_scalars(head=(head, I32), tail=(tail, I32), tokens=(tokens, F32),
+                           backoff=(backoff, I32), next_retry=(next_retry, I32),
+                           store_ok=(store_ok, BOOL)))
+    out = torch.empty((5,), dtype=I32, device=dev)
+    tokens_out = torch.empty((), dtype=F32, device=dev)
+    _launch("ring_drain", dev, (head, tail, tokens, backoff, next_retry, store_ok, out, tokens_out),
+            (_i32_arg("now", now), _f32_bits(rate_per_tick), _f32_bits(burst),
+             _i32_arg("max_per_tick", max_per_tick), _i32_arg("backoff_base", backoff_base),
+             _i32_arg("backoff_max", backoff_max)))
+    head, backoff, next_retry, n, calls = out.unbind()
+    return head, tokens_out, backoff, next_retry, n, calls
+
+
+def ring_drained(keys, data_ts, head, n_drained, max_per_tick: int):
+    """(key, data_ts, live) of the rows the last drain took; see
+    ``ref.ring_drained_ref``.  Static shape ``(max_per_tick,)``."""
+    if not _on_cuda(keys):
+        return ref.ring_drained_ref(keys, data_ts, head, n_drained, max_per_tick)
+    q, m = keys.shape[0], int(max_per_tick)
+    dev = keys.device
+    _check(dev, keys=(keys, I32, (q,)), data_ts=(data_ts, I32, (q,)),
+           **_scalars(head=(head, I32), n_drained=(n_drained, I32)))
+    rows = torch.empty((2, m), dtype=I32, device=dev)
+    live = torch.empty((m,), dtype=BOOL, device=dev)
+    _launch("ring_drained", dev, (keys, data_ts, head, n_drained, rows, live), (q, m))
+    return (*rows.unbind(), live)
 
 
 # The paged_attention kernel's split over the KV length: the blocks per SM a

@@ -2,14 +2,17 @@
 
 Ports of ``repro.kernels.ref`` (``flic_lookup_ref``, ``flic_update_ref``,
 ``flic_insert_ref``, ``flic_merge_ref``, ``paged_attention_ref``,
-``ssd_scan_ref``) with the same contracts, and ``payload_hash_ref``, the
-payload hash of ``core/workload.py`` (the JAX package leaves it to XLA, with
-no Pallas kernel).  They are the CPU path of the ``kernels.ops`` wrappers,
+``ssd_scan_ref``) with the same contracts, ``payload_hash_ref``, the
+payload hash of ``core/workload.py``, and the ``ring_*_ref`` calls of the
+writer ring (``core/writeback.py``, ``simulator._resolve_backstop{,_keyed}``;
+the JAX package leaves both to XLA, with no Pallas kernel).  They are the
+CPU path of the ``kernels.ops`` wrappers,
 the ``probe_backend="plain"`` path of the simulator, the
 ``kernel_backend="plain"`` path of the serving engine, the Mamba2 model's
 scan when it is given ``ssd_scan=ref.ssd_scan_ref``, and what
-``chip_smoke.py`` (``payload_hash``: ``tests/test_torch_payload_hash.py``)
-holds each CUDA kernel against on the card.
+``chip_smoke.py`` (``payload_hash``: ``tests/test_torch_payload_hash.py``;
+the ring: ``tests/test_torch_ring.py``) holds each CUDA kernel against on
+the card.
 
 Differences in form from the JAX oracles, none in result:
 
@@ -225,6 +228,177 @@ def payload_hash_ref(key, data_ts, dim: int):
         key[..., None], torch.arange(dim, dtype=torch.int64, device=key.device)
     )
     return lanes.to(torch.float32) / float(2**32)
+
+
+# ---------------------------------------------------------------------------
+# ring_*: the write-behind ring of the fog tick (core/writeback.py)
+# ---------------------------------------------------------------------------
+#
+# A fixed-size ring of ``Q`` slots (``keys``, ``data_ts``, ``origin``, int32)
+# with monotone int32 ``head``/``tail`` counters (0-d tensors); the keyed
+# mode adds a ``(K,)`` slot map of each key's newest monotone index.  JAX
+# routes dead lanes of a scatter to an out-of-bounds slot that
+# ``mode="drop"`` discards.  PyTorch has no such mode, so ``set_drop`` and
+# ``max_drop`` scatter into one extra sink slot and slice it off.
+
+def set_drop(buf: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``buf.at[idx].set(vals, mode="drop")`` for indices in [0, len] — index
+    ``len(buf)`` and above are dropped.  Live indices must be unique."""
+    n = buf.shape[0]
+    ext = torch.cat([buf, buf[:1]])
+    ext[idx.long().clamp(max=n)] = vals.to(buf.dtype)
+    return ext[:n]
+
+
+def max_drop(buf: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``buf.at[idx].max(vals, mode="drop")`` for indices >= 0; index
+    ``len(buf)`` and above are dropped.  Duplicates merge under max."""
+    n = buf.shape[0]
+    ext = torch.cat([buf, buf[:1]])
+    ext.scatter_reduce_(0, idx.long().clamp(max=n), vals.to(buf.dtype), "amax")
+    return ext[:n]
+
+
+def _sum_i32(mask: torch.Tensor) -> torch.Tensor:
+    return mask.sum(dtype=torch.int32)
+
+
+def ring_enqueue_ref(keys, data_ts, origin, head, tail, dropped, in_keys, in_ts, in_origin,
+                     mask):
+    """Push the masked lanes in order; overflow drops the newest.  Returns
+    new (keys, data_ts, origin, tail, dropped, n_accepted)."""
+    cap = keys.shape[0]
+    offs = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    free = cap - (tail - head)
+    accept = mask & (offs < free)
+    n_accept = _sum_i32(accept)
+    slots = torch.where(accept, (tail + offs) % cap, cap)
+    return (
+        set_drop(keys, slots, in_keys),
+        set_drop(data_ts, slots, in_ts),
+        set_drop(origin, slots, in_origin),
+        tail + n_accept,
+        dropped + _sum_i32(mask & ~accept),
+        n_accept,
+    )
+
+
+def ring_enqueue_keyed_ref(keys, data_ts, origin, head, tail, dropped, slot_of_key, coalesced,
+                           key_ids, in_ts, in_origin, mask):
+    """Push keyed writes, coalescing re-writes of pending keys.
+
+    Per masked lane: a later lane of the same key supersedes it; a key with
+    a PENDING slot is updated in place; otherwise the write is appended and
+    the slot map records its monotone index.  Returns new (keys, data_ts,
+    origin, tail, dropped, slot_of_key, coalesced, n_appended).
+    """
+    cap = keys.shape[0]
+    ku = slot_of_key.shape[0]
+    kid = key_ids.to(torch.int32)
+    r = kid.shape[0]
+    order = torch.arange(r, dtype=torch.int32, device=kid.device)
+    kid_safe = kid.clamp(0, ku - 1).long()
+
+    # In-batch dedup: lane i survives iff it is the LAST masked lane of its key.
+    last_of_key = max_drop(
+        torch.full((ku,), -1, dtype=torch.int32, device=kid.device),
+        torch.where(mask, kid, ku), order,
+    )
+    rep = mask & (last_of_key[kid_safe] == order)
+
+    # Cross-tick coalesce: representative lanes whose key is still pending.
+    slot = slot_of_key[kid_safe]
+    pending = rep & (slot >= head) & (slot < tail)
+    fresh = rep & ~pending
+    upd_slot = torch.where(pending, slot % cap, cap)
+
+    # Append the fresh representatives (the overflow policy of ``ring_enqueue_ref``).
+    offs = torch.cumsum(fresh.to(torch.int32), 0, dtype=torch.int32) - 1
+    free = cap - (tail - head)
+    accept = fresh & (offs < free)
+    n_accept = _sum_i32(accept)
+    slots = torch.where(accept, (tail + offs) % cap, cap)
+
+    def write(buf, vals):
+        return set_drop(set_drop(buf, upd_slot, vals), slots, vals)
+
+    n_coalesced = _sum_i32(mask & ~rep) + _sum_i32(pending)
+    return (
+        write(keys, kid),
+        write(data_ts, in_ts),
+        write(origin, in_origin),
+        tail + n_accept,
+        dropped + _sum_i32(fresh & ~accept),
+        set_drop(slot_of_key, torch.where(accept, kid, ku), tail + offs),
+        coalesced + n_coalesced,
+        n_accept,
+    )
+
+
+def ring_backstop_ref(head, tail, capacity: int, healthy, drained_total, need_store, enq_idx):
+    """Route fog-missed reads (FIFO index durability) through the ring of
+    ``capacity`` slots and the store of ``drained_total`` rows: returns
+    (queue_hit, store_read, failed, found, in_store)."""
+    in_pending = (enq_idx >= head) & (enq_idx < tail)
+    in_ring = (enq_idx >= tail - capacity) & (enq_idx < tail)
+    queue_hit = need_store & (in_pending | (~healthy & in_ring))
+    store_read = need_store & ~queue_hit & healthy
+    failed = need_store & ~queue_hit & ~healthy
+    in_store = enq_idx < drained_total
+    return queue_hit, store_read, failed, store_read & in_store, in_store
+
+
+def ring_backstop_keyed_ref(head, tail, slot_of_key, data_ts, healthy, table_ts, need_store,
+                            key_ids):
+    """Keyed-durability routing through the ring (its slot map and
+    ``data_ts``) and the store's table: returns (queue_hit, store_read,
+    failed, found, served_ts), ``served_ts`` the version served (-1: none)."""
+    cap = data_ts.shape[0]
+    ku = slot_of_key.shape[0]
+    kid = key_ids.clamp(0, ku - 1).long()
+    slot = slot_of_key[kid]
+    in_pending = (slot >= head) & (slot < tail)
+    in_ring = (slot >= 0) & (slot >= tail - cap) & (slot < tail)
+    queue_hit = need_store & (in_pending | (~healthy & in_ring))
+    store_read = need_store & ~queue_hit & healthy
+    failed = need_store & ~queue_hit & ~healthy
+    durable_ts = table_ts[kid]
+    found = store_read & (durable_ts >= 0)
+    ring_ts = data_ts[(slot.clamp(min=0) % cap).long()]
+    served_ts = torch.where(queue_hit, ring_ts, torch.where(found, durable_ts, -1))
+    return queue_hit, store_read, failed, found, served_ts
+
+
+def ring_drain_ref(head, tail, tokens, backoff, next_retry, now: int, store_ok,
+                   rate_per_tick: float, burst: float, max_per_tick: int, backoff_base: int,
+                   backoff_max: int):
+    """One writer tick: drain one batch of up to ``max_per_tick`` rows (one
+    API call).  On a failed attempt nothing drains and the backoff doubles.
+    Returns new (head, tokens, backoff, next_retry, n_rows_drained,
+    n_api_calls)."""
+    tokens = torch.clamp(tokens + rate_per_tick, max=burst)
+    can_try = (now >= next_retry) & (tokens >= 1.0)
+    size = tail - head
+    attempt = can_try & (size > 0)
+    ok = attempt & store_ok
+    n = torch.where(ok, torch.clamp(size, max=max_per_tick), 0)
+    calls = attempt.to(torch.int32)
+    failed = attempt & ~store_ok
+    new_backoff = torch.where(
+        failed,
+        torch.clamp(torch.clamp(backoff * 2, min=backoff_base), max=backoff_max),
+        torch.where(ok, 0, backoff),
+    )
+    next_retry = torch.where(failed, now + new_backoff, next_retry)
+    return head + n, tokens - calls.to(torch.float32), new_backoff, next_retry, n, calls
+
+
+def ring_drained_ref(keys, data_ts, head, n_drained, max_per_tick: int):
+    """(key, data_ts, live) of the rows drained by the LAST drain, from the
+    ring and ``head`` after it.  Static shape ``(max_per_tick,)``."""
+    lane = torch.arange(max_per_tick, dtype=torch.int32, device=keys.device)
+    idx = ((head - n_drained + lane) % keys.shape[0]).long()
+    return keys[idx], data_ts[idx], lane < n_drained
 
 
 # ---------------------------------------------------------------------------
